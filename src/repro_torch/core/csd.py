@@ -1,0 +1,412 @@
+"""The ZCSD device: zoned storage + verified offload execution.
+
+Mirrors the paper's two-part ``NvmCsd`` API (Listing 1):
+
+  part-i  (app <-> ZCSD): :meth:`NvmCsd.nvm_cmd_bpf_run` submits a program and
+          executes it synchronously; :meth:`NvmCsd.nvm_cmd_bpf_result` fetches
+          the result. :meth:`NvmCsd.nvm_cmd_bpf_run_async` is the asynchronous
+          extension the paper lists as future work.
+  part-ii (program <-> device hooks): :meth:`bpf_read` (bounds-checked page
+          read), :meth:`bpf_return_data`, :meth:`bpf_get_lba_size`,
+          :meth:`bpf_get_mem_info` — the environment the interpreter tier
+          executes against.
+
+The device keeps the paper's per-offload statistics: runtime, number of
+instructions executed, JIT time, and the amount of data movement saved.
+
+Workflow lifecycle (paper Figure 1): (1) app calls the API with a program;
+(2,3) device reads the necessary blocks from the ZNS zone; (4,5) program is
+verified and JITed; (6) only the (reduced) result returns to the app.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import threading
+import time
+import weakref
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch._device import host_to_device, resolve_device
+
+from repro_torch.core.cache import CompiledProgramCache
+from repro_torch.core.prefetch import RingReader
+from repro_torch.telemetry import trace as _trace
+from repro_torch.core.programs import Program
+from repro_torch.core.verifier import VerifierLimits, verify_program, verify_zone_access
+from repro_torch.core.vm import (
+    OffloadResult,
+    interpret_program,
+    jit_program,
+    run_oracle,
+)
+from repro_torch.zns.device import ZonedDevice
+
+__all__ = ["NvmCsd", "OffloadStats", "CsdTier", "extent_geometry",
+           "execute_extent", "resolve_tier", "pin_zone_memory", "stage_extent"]
+
+TIERS = ("interp", "jit", "kernel")
+
+
+def resolve_tier(tier: str, program: Program) -> str:
+    """The tier that will actually execute ``program``: kernel-tier requests
+    for non-kernelizable programs fall back to the jit tier, and the
+    stats/history must say so rather than mis-attributing JIT timings."""
+    if tier == CsdTier.KERNEL:
+        from repro_torch.kernels.zone_filter import ops as zf_ops
+        if not zf_ops.kernelizable(program):
+            return CsdTier.JIT
+    return tier
+
+
+# ---------------------------------------------------------------------------
+# the zone-to-card seam
+# ---------------------------------------------------------------------------
+
+_pinned: "weakref.WeakKeyDictionary[ZonedDevice, weakref.finalize]" = \
+    weakref.WeakKeyDictionary()
+_pin_lock = threading.Lock()
+
+
+def _unpin(buf: np.ndarray) -> None:
+    torch.cuda.cudart().cudaHostUnregister(buf.ctypes.data)
+
+
+def pin_zone_memory(device: ZonedDevice) -> None:
+    """Page-lock ``device``'s whole backing buffer once (``cudaHostRegister``),
+    so that every extent read from it reaches the card in a single DMA with
+    no staging copy on the host. Unregistered when the device is collected
+    (the finalizer holds the buffer until then). Idempotent."""
+    with _pin_lock:
+        if device in _pinned:
+            return
+        buf = device._buf            # the zones' backing bytes
+        err = torch.cuda.cudart().cudaHostRegister(buf.ctypes.data, buf.nbytes, 0)
+        if int(err) != 0:
+            raise RuntimeError(f"cudaHostRegister of the zone memory "
+                               f"({buf.nbytes} bytes) failed: cudaError {int(err)}")
+        _pinned[device] = weakref.finalize(device, _unpin, buf)
+
+
+def stage_extent(device: ZonedDevice, pages: np.ndarray,
+                 torch_device: torch.device) -> tuple[torch.Tensor, float]:
+    """Move a zone extent (a read-only view of ``device``'s buffer) to
+    ``torch_device``: ``(tensor, seconds)``. On CUDA this is the one
+    host-to-card copy of the offload, straight from the page-locked zone
+    memory, counted in ``stage_extent.copies``/``stage_extent.bytes``. On the
+    CPU the tensor aliases the view (no copy, nothing counted)."""
+    if torch_device.type != "cuda":
+        return host_to_device(pages, torch_device), 0.0
+    pin_zone_memory(device)
+    t0 = time.perf_counter()
+    out = host_to_device(pages, torch_device)     # blocking: the DMA is done
+    seconds = time.perf_counter() - t0
+    stage_extent.copies += 1
+    stage_extent.bytes += pages.nbytes
+    return out, seconds
+
+
+stage_extent.copies = 0
+stage_extent.bytes = 0
+
+
+def extent_geometry(
+    block_bytes: int, dtype: np.dtype, n_blocks: int, pages_per_read: int
+) -> tuple[int, int]:
+    """Page geometry of a zone extent: (elements per page, number of pages).
+
+    Raises ValueError when the extent does not tile into whole pages — the
+    alignment contract every execution tier relies on.
+    """
+    page_elems = block_bytes * pages_per_read // dtype.itemsize
+    if block_bytes * pages_per_read % dtype.itemsize:
+        raise ValueError("block size not a multiple of element size")
+    if n_blocks % pages_per_read:
+        raise ValueError(
+            f"extent of {n_blocks} blocks not a multiple of read granularity "
+            f"{pages_per_read}"
+        )
+    return page_elems, n_blocks // pages_per_read
+
+
+def execute_extent(
+    device: ZonedDevice,
+    program: Program,
+    zone_id: int,
+    block_off: int,
+    n_blocks: int,
+    *,
+    tier: str,
+    pages_per_read: int = 1,
+    cache: Optional[CompiledProgramCache] = None,
+    prefetch_depth: int = 2,
+    torch_device="cuda",
+) -> OffloadResult:
+    """Execute an (already verified) program over one zone extent on one
+    device, on the requested tier. The single-device execution engine shared
+    by :class:`NvmCsd` and the array scheduler (which calls it per stripe
+    chunk when the batched path does not apply).
+
+    The jit and kernel tiers compute on ``torch_device``. The extent reaches
+    it with one copy (:func:`stage_extent`: ``read_extent`` hands out a typed
+    view of the page-locked device buffer, and one DMA moves it to the card);
+    that copy is timed inside ``exec_seconds`` and reported as
+    ``h2d_seconds``. ``result.compile_seconds`` is non-zero only when this
+    call prepared a fresh executable (miss in ``cache``).
+    """
+    tier = resolve_tier(tier, program)   # kernel -> jit for non-kernelizable
+    dtype = np.dtype(program.input_dtype)
+    page_elems, n_pages = extent_geometry(
+        device.block_bytes, dtype, n_blocks, pages_per_read)
+    insns_bound = program.n_insns * n_pages
+    if cache is None:
+        cache = CompiledProgramCache(capacity=4)  # private one-shot cache
+
+    if tier == CsdTier.INTERP:
+        def read_page(p: int) -> np.ndarray:
+            return device.read_blocks_view(
+                zone_id, block_off + p * pages_per_read, pages_per_read)
+        # Lookahead only runs when there is transfer time to hide (the device
+        # models bandwidth); against pure host memory it would be all
+        # overhead. Every bandwidth-modelling device is ring-capable, so the
+        # pages stream as in-flight completion futures — no producer thread:
+        # the emulated transfer of pages p+1..p+depth elapses on the zone's
+        # virtual clock while page p is being interpreted.
+        if (n_pages > 1 and prefetch_depth > 0
+                and getattr(device, "read_us_per_block", 0.0) > 0):
+            with RingReader(
+                    lambda p: device.submit_read(
+                        zone_id, block_off + p * pages_per_read,
+                        pages_per_read),
+                    n_pages, depth=prefetch_depth) as reader:
+                result = interpret_program(program, reader, n_pages,
+                                           page_elems)
+                result.read_seconds = reader.read_seconds
+            return result
+        return interpret_program(program, read_page, n_pages, page_elems)
+    if tier not in (CsdTier.JIT, CsdTier.KERNEL):
+        raise ValueError(f"unknown tier {tier!r}")
+    torch_device = resolve_device(torch_device)
+    if tier == CsdTier.JIT:
+        build = lambda: jit_program(program, n_pages, page_elems,  # noqa: E731
+                                    device=torch_device)
+    else:
+        # resolve_tier above already routed non-kernelizable programs to jit
+        from repro_torch.kernels.zone_filter import ops as zf_ops
+        build = lambda: zf_ops.kernel_program(  # noqa: E731
+            program, n_pages, page_elems, device=torch_device)
+    # the key names the device: CPU and CUDA executables never collide
+    jp, compile_seconds, hit = cache.get_or_build(
+        (tier, program, n_pages, page_elems, str(torch_device)), build)
+    # steps 2,3: the zone extent, a typed view of the backing buffer
+    t_r = time.perf_counter()
+    with _trace.span("tier.read", tier=tier, zone=zone_id,
+                     nblocks=n_blocks):
+        pages = device.read_extent(zone_id, block_off, n_blocks,
+                                   dtype).reshape(n_pages, page_elems)
+    read_seconds = time.perf_counter() - t_r
+    t0 = time.perf_counter()
+    with _trace.span("tier.compute", tier=tier, pages=n_pages):
+        pages_t, h2d_seconds = stage_extent(device, pages, torch_device)
+        value = jp(pages_t)
+    exec_seconds = time.perf_counter() - t0
+    nbytes = (sum(v.nbytes for v in value) if isinstance(value, tuple)
+              else value.nbytes)
+    return OffloadResult(value, nbytes, n_pages,
+                         insns_bound, exec_seconds, compile_seconds,
+                         read_seconds=read_seconds,
+                         cache_hits=int(hit), cache_misses=int(not hit),
+                         h2d_seconds=h2d_seconds)
+
+
+@dataclass
+class OffloadStats:
+    """Per-offload statistics (paper §3: runtime, #insns, JIT time, data
+    movement saved)."""
+
+    program: str
+    tier: str
+    zone_id: int
+    pages: int
+    bytes_read: int = 0               # storage -> compute (stayed inside device)
+    bytes_returned: int = 0           # device -> host (crossed the link)
+    insns_verified: int = 0
+    insns_executed: int = 0
+    verify_seconds: float = 0.0
+    jit_seconds: float = 0.0
+    exec_seconds: float = 0.0
+    read_seconds: float = 0.0         # time inside device transfers
+    h2d_seconds: float = 0.0          # host->card copy (part of exec_seconds)
+    cache_hits: int = 0               # shared compile-cache hits this offload
+    cache_misses: int = 0
+
+    @property
+    def movement_saved_bytes(self) -> int:
+        """Bytes that did NOT cross the host link thanks to the offload."""
+        return max(self.bytes_read - self.bytes_returned, 0)
+
+    @property
+    def reduction_factor(self) -> float:
+        return self.bytes_read / max(self.bytes_returned, 1)
+
+    @property
+    def cache_hit_rate(self) -> float:
+        total = self.cache_hits + self.cache_misses
+        return self.cache_hits / total if total else 0.0
+
+
+class CsdTier:
+    INTERP = "interp"
+    JIT = "jit"
+    KERNEL = "kernel"
+
+
+class NvmCsd:
+    """A Zoned Computational Storage Device.
+
+    ``zoned`` is the ZNS device that holds the data; ``device`` is where the
+    jit and kernel tiers compute (default ``"cuda"``; it raises when CUDA is
+    absent, so pass ``device="cpu"`` to run the plain PyTorch paths). On
+    CUDA the zone memory is page-locked here, once, so each offload moves
+    its extent to the card in a single DMA.
+
+    ``pages_per_read`` controls the device-internal streaming granularity
+    (paper default: one 4 KiB block per access). ``cache`` holds prepared
+    executables for every tier; pass one :func:`repro_torch.core.cache.default_cache`
+    (or any shared :class:`CompiledProgramCache`) to reuse them across CSD
+    instances — programs are zone-agnostic, and the cache key names the
+    compute device.
+    """
+
+    def __init__(
+        self,
+        zoned: ZonedDevice,
+        *,
+        device="cuda",
+        default_tier: str = CsdTier.JIT,
+        pages_per_read: int = 1,
+        limits: VerifierLimits = VerifierLimits(),
+        max_workers: int = 2,
+        cache: Optional[CompiledProgramCache] = None,
+        prefetch_depth: int = 2,
+    ):
+        self.torch_device = resolve_device(device)
+        if self.torch_device.type == "cuda":
+            pin_zone_memory(zoned)
+        self.device = zoned
+        self.default_tier = default_tier
+        self.pages_per_read = int(pages_per_read)
+        self.limits = limits
+        self.prefetch_depth = int(prefetch_depth)
+        self._result: Optional[OffloadResult] = None
+        self.cache = cache if cache is not None else CompiledProgramCache()
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=max_workers)
+        self.history: list[OffloadStats] = []
+
+    # ------------------------------------------------------- part-ii hooks
+    def bpf_get_lba_size(self) -> int:
+        return self.device.lba_size
+
+    def bpf_get_mem_info(self) -> tuple[int, int]:
+        """(scratch bytes available, block bytes) — the device-memory budget
+        an offloaded program may assume; the same 16 MiB contract as the
+        reference, so a program sees one budget on either package."""
+        return 16 * 1024 * 1024, self.device.lba_size
+
+    def bpf_read(self, zone_id: int, block_off: int, n_blocks: int) -> np.ndarray:
+        """Bounds-checked read used by the interpreter tier (device enforces
+        the write-pointer bound; the verifier proved the static extent)."""
+        return self.device.read_blocks(zone_id, block_off, n_blocks)
+
+    def bpf_return_data(self, data: OffloadResult) -> None:
+        self._result = data
+
+    # --------------------------------------------------------- part-i API
+    def nvm_cmd_bpf_run(
+        self,
+        program: Program,
+        zone_id: int,
+        *,
+        block_off: int = 0,
+        n_blocks: Optional[int] = None,
+        tier: Optional[str] = None,
+    ) -> OffloadStats:
+        """Verify + execute ``program`` against a zone extent. Synchronous:
+        returns once the (reduced) result is available via
+        :meth:`nvm_cmd_bpf_result`."""
+        tier = resolve_tier(tier or self.default_tier, program)
+        zone = self.device.zone(zone_id)
+        if n_blocks is None:
+            n_blocks = zone.write_pointer - block_off
+
+        dtype = np.dtype(program.input_dtype)
+        block_bytes = self.device.block_bytes
+        page_elems, n_pages = extent_geometry(
+            block_bytes, dtype, n_blocks, self.pages_per_read)
+
+        # steps 4: verify (static program + the zone extent it may touch)
+        t0 = time.perf_counter()
+        insns_verified = verify_program(
+            program, page_elems=page_elems, n_pages=n_pages, limits=self.limits
+        )
+        verify_zone_access(
+            zone_write_pointer=zone.write_pointer, block_off=block_off,
+            n_blocks=n_blocks,
+        )
+        verify_seconds = time.perf_counter() - t0
+
+        stats = OffloadStats(
+            program=program.name, tier=tier, zone_id=zone_id, pages=n_pages,
+            insns_verified=insns_verified, verify_seconds=verify_seconds,
+            bytes_read=n_blocks * block_bytes,
+        )
+
+        result = execute_extent(
+            self.device, program, zone_id, block_off, n_blocks,
+            tier=tier, pages_per_read=self.pages_per_read,
+            cache=self.cache, prefetch_depth=self.prefetch_depth,
+            torch_device=self.torch_device,
+        )
+        stats.jit_seconds = result.compile_seconds
+        stats.insns_executed = result.insns_executed
+        stats.exec_seconds = result.exec_seconds
+        stats.read_seconds = result.read_seconds
+        stats.h2d_seconds = result.h2d_seconds
+        stats.bytes_returned = result.bytes_returned
+        stats.cache_hits = result.cache_hits
+        stats.cache_misses = result.cache_misses
+        self.bpf_return_data(result)
+        self.history.append(stats)
+        return stats
+
+    def nvm_cmd_bpf_result(self) -> object:
+        """Fetch the last offload's result (paper API line 8)."""
+        if self._result is None:
+            raise RuntimeError("no offload result available")
+        return self._result.value
+
+    # ------------------------------------------------- async extension
+    def nvm_cmd_bpf_run_async(
+        self, program: Program, zone_id: int, **kw
+    ) -> concurrent.futures.Future:
+        """Asynchronous execution (the paper's stated future extension)."""
+        return self._pool.submit(self.nvm_cmd_bpf_run, program, zone_id, **kw)
+
+    # ---------------------------------------------------------- helpers
+    def run_and_fetch(self, program: Program, zone_id: int, **kw):
+        stats = self.nvm_cmd_bpf_run(program, zone_id, **kw)
+        return self.nvm_cmd_bpf_result(), stats
+
+    def oracle(self, program: Program, zone_id: int, *, block_off: int = 0,
+               n_blocks: Optional[int] = None):
+        """Host-side reference execution (reads the WHOLE extent over the
+        link — the "no CSD" baseline; the link transfer is the point, the
+        typed view just avoids gratuitous extra host copies)."""
+        zone = self.device.zone(zone_id)
+        if n_blocks is None:
+            n_blocks = zone.write_pointer - block_off
+        return run_oracle(program, self.device.read_extent(
+            zone_id, block_off, n_blocks, np.dtype(program.input_dtype)))
