@@ -251,7 +251,7 @@ def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref):
         for name, dtype, prog in cases:
             x = data[dtype]
             ops, imms = zf_ops.encode_program(prog, DEVICE)
-            kind = zf_ops._TERM_KIND[prog.terminal.op]
+            kind = zf_ops.TERM_KIND[prog.terminal.op]
             got = zf_kernel.filtered_reduce(x, kind=kind, ops=ops, imms=imms)
             transform = zf_ref.decode_transform(ops, imms, u32=dtype == "uint32")
             want = zf_ref.filtered_reduce_ref(x, kind, transform)
@@ -271,7 +271,7 @@ def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref):
         x = card_pages(torch, dtype, BATCH_SHAPE[0] * BATCH_SHAPE[1], seed=100 + i).reshape(
             *BATCH_SHAPE, -1)
         ops, imms = zf_ops.encode_program(prog, DEVICE)
-        kind = zf_ops._TERM_KIND[prog.terminal.op]
+        kind = zf_ops.TERM_KIND[prog.terminal.op]
         rows = zf_kernel.filtered_reduce_batched(x, kind=kind, ops=ops, imms=imms)
         single = torch.stack([zf_kernel.filtered_reduce(c, kind=kind, ops=ops, imms=imms)
                               for c in x])

@@ -12,7 +12,7 @@ import warnings
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "host_tensor", "host_to_device", "to_numpy"]
+__all__ = ["resolve_device", "host_to_device", "to_numpy"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -28,8 +28,9 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-def host_tensor(array: np.ndarray) -> torch.Tensor:
-    """A CPU tensor that aliases ``array`` (no copy).
+def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``array`` on ``device``: an alias on the CPU, one blocking host-to-card
+    copy on CUDA (a single DMA when the host memory is page-locked).
 
     Zone extents arrive as read-only views of the device's backing buffer.
     ``torch.from_numpy`` warns on those because a tensor cannot be made
@@ -39,13 +40,7 @@ def host_tensor(array: np.ndarray) -> torch.Tensor:
     array = np.ascontiguousarray(array)
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*not writable.*")
-        return torch.from_numpy(array)
-
-
-def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """``array`` on ``device``: an alias on the CPU, one blocking host-to-card
-    copy on CUDA (a single DMA when the host memory is page-locked)."""
-    t = host_tensor(array)
+        t = torch.from_numpy(array)
     return t if device.type == "cpu" else t.to(device)
 
 

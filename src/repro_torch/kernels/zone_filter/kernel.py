@@ -37,7 +37,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "zone_filter.cu"
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.uint32: 2,
                torch.float32: 3, torch.float64: 4}
 _TILE_BYTES = 256 * 2 * 16      # threads x 16-byte loads per thread, per tile
-_MAX_BLOCKS_PER_CHUNK = 1024    # one wave on 132 SMs at 8 blocks of 256 each
+_MAX_BLOCKS_PER_CHUNK = 1024    # about two waves on 132 SMs at 4 blocks of 256 each
 
 
 @functools.cache

@@ -20,7 +20,7 @@ from repro_torch.kernels.zone_filter.ref import INSN_CODES
 __all__ = ["zone_filter_count", "zone_reduce", "run_program_kernel",
            "run_program_kernel_batched", "kernel_program",
            "kernel_program_batched", "encode_program", "KERNELIZABLE_TERMINALS",
-           "kernelizable"]
+           "TERM_KIND", "kernelizable"]
 
 # RED_SUM over ints is NOT kernelized: the reference's TPU kernel has no i64
 # accumulator, and the kernel tier keeps the reference's contract — those
@@ -28,7 +28,8 @@ __all__ = ["zone_filter_count", "zone_reduce", "run_program_kernel",
 KERNELIZABLE_TERMINALS = frozenset(
     {OpCode.RED_COUNT, OpCode.RED_SUM, OpCode.RED_MIN, OpCode.RED_MAX})
 
-_TERM_KIND = {
+# the kernel's reduction kind for each kernelizable terminal
+TERM_KIND = {
     OpCode.RED_COUNT: "count", OpCode.RED_SUM: "sum",
     OpCode.RED_MIN: "min", OpCode.RED_MAX: "max",
 }
@@ -45,11 +46,12 @@ def kernelizable(program: Program) -> bool:
     return True
 
 
-def _encode(insns, dtype: np.dtype) -> tuple[np.ndarray, np.ndarray]:
-    """(opcodes int32, immediates as 8-byte words int64) of an ALU/CMP chain.
-    Each immediate is cast to the stream type first, as the reference's
-    ``jnp.asarray(imm, x.dtype)`` does; float immediates are stored as the
-    bits of that value widened to float64. Shift amounts are stored as is."""
+def _encode(insns, dtype: np.dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(opcodes int32, immediates as 8-byte words int64) of an ALU/CMP chain,
+    as tensors on ``device``. Each immediate is cast to the stream type
+    first, as the reference's ``jnp.asarray(imm, x.dtype)`` does; float
+    immediates are stored as the bits of that value widened to float64.
+    Shift amounts are stored as is."""
     ops = np.empty(len(insns), np.int32)
     imms = np.zeros(len(insns), np.int64)
     fimms = imms.view(np.float64)
@@ -63,28 +65,27 @@ def _encode(insns, dtype: np.dtype) -> tuple[np.ndarray, np.ndarray]:
             fimms[i] = np.float64(dtype.type(insn.imm))
         else:
             imms[i] = int(dtype.type(insn.imm))
-    return ops, imms
+    return torch.from_numpy(ops).to(device), torch.from_numpy(imms).to(device)
 
 
 def encode_program(program: Program, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The program's ALU/CMP chain (``insns[:-1]``) encoded for the kernel,
     as (ops, imms) tensors on ``device``."""
-    ops, imms = _encode(program.insns[:-1], np.dtype(program.input_dtype))
-    device = resolve_device(device)
-    return (torch.from_numpy(ops).to(device), torch.from_numpy(imms).to(device))
+    return _encode(program.insns[:-1], np.dtype(program.input_dtype),
+                   resolve_device(device))
 
 
-def _threshold_program(pages: torch.Tensor, threshold, device):
-    """(ops, imms) of ``x > threshold`` on the stream type of ``pages``."""
+def _threshold_program(pages: torch.Tensor, threshold):
+    """(ops, imms) of ``x > threshold`` on the stream type and device of
+    ``pages``."""
     dtype = np.dtype(str(pages.dtype).removeprefix("torch."))
-    ops, imms = _encode([Instruction(OpCode.CMP_GT, threshold)], dtype)
-    return torch.from_numpy(ops).to(device), torch.from_numpy(imms).to(device)
+    return _encode([Instruction(OpCode.CMP_GT, threshold)], dtype, pages.device)
 
 
 def zone_filter_count(pages: torch.Tensor, threshold) -> torch.Tensor:
     """The paper's workload: count zone elements above ``threshold``
     (int32, on the device of ``pages``)."""
-    ops, imms = _threshold_program(pages, threshold, pages.device)
+    ops, imms = _threshold_program(pages, threshold)
     return filtered_reduce(pages, kind="count", ops=ops, imms=imms)
 
 
@@ -94,7 +95,7 @@ def zone_reduce(pages: torch.Tensor, kind: str = "count",
     them when ``threshold`` is None)."""
     if threshold is None:
         return filtered_reduce(pages, kind=kind)
-    ops, imms = _threshold_program(pages, threshold, pages.device)
+    ops, imms = _threshold_program(pages, threshold)
     return filtered_reduce(pages, kind=kind, ops=ops, imms=imms)
 
 
@@ -106,7 +107,7 @@ def _kernel_program(program: Program, n_pages: int, page_elems: int,
     # The kernel library is built once per checkout (kernel.load), not per
     # program: compiling a program for this tier is encoding it.
     t0 = time.perf_counter()
-    kind = _TERM_KIND[program.terminal.op]
+    kind = TERM_KIND[program.terminal.op]
     ops, imms = encode_program(program, device)
 
     def fn(pages: torch.Tensor) -> torch.Tensor:

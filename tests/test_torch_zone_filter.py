@@ -34,7 +34,7 @@ def _x64_under_both_jax_apis(monkeypatch):
                             lambda: jax.enable_x64(True), raising=False)
 
 
-def _prog(dtype, *insns, name="prog"):
+def _case(name, dtype, insns):
     """(reference Program, port Program) with the same instructions."""
     def build(mod):
         return mod.Program(dtype, tuple(mod.Instruction(mod.OpCode(op), imm)
@@ -124,10 +124,6 @@ CASES = [
     ("empty_sum_f32", "float32", [_c("cmp_gt", 1e30), _c("red_sum")]),
 ]
 IDS = [c[0] for c in CASES]
-
-
-def _case(name, dtype, insns):
-    return _prog(dtype, *insns, name=name)
 
 
 def _assert_same(got, want, float_sum):
