@@ -6,16 +6,27 @@
 Phases, one JSON line each; any failed phase exits non-zero:
 
   device    the card's name, compute capability (must be 9.0) and power limit
-  build     nvcc of the zone_filter kernel (seconds, or "cached")
-  kernels   every kernel held against its plain PyTorch version on the card:
-            every (dtype, kind), the reference tests' programs and the edge
-            programs, at 64 and 65,536 pages; batched rows against single
-            launches. Exact for counts, integers, min and max; float sums
-            within rtol 1e-5 of the sum of the magnitudes they add.
+  build     nvcc of every kernel source, all started together (seconds, or
+            "cached"), with registers and spills for each source
+  kernels   every kernel held against its plain PyTorch version on the card.
+            zone_filter: every (dtype, kind), the reference tests' programs
+            and the edge programs, at 64 and 65,536 pages; batched rows
+            against single launches. Exact for counts, integers, min and max;
+            float sums within rtol 1e-5 of the sum of the magnitudes they add.
+            paged_attn: the reference tests' geometries, every attention
+            geometry of src/repro/configs and the granite-8b pool, in float32
+            and bfloat16 (within PAGED_TOL), on random tables with -1 tails,
+            ragged and full lengths, a length-0 row, an all -1 row and a -1
+            hole.
   offload   the paper's Figure 2 offload through NvmCsd: one 256 MiB zone of
             random int32, count > RAND_MAX/2, on the kernel and jit tiers
             (interp on a 4 MiB zone); launch counts read around the run
   batched   the chunk-batched kernel entry over the same zone as 8 chunks
+  serve     zoned-KV decode through KVZonePool at granite-8b width on a
+            4,096-zone bf16 pool: two waves of sequences, an eviction between
+            them and zone reuse; every attend held against the plain version,
+            and two planted faults (a length one short, a last zone dropped)
+            that this check must reject
   timing    kernel, plain-version and library times on the card (CUDA events)
 
 Then the ``nvidia-smi`` line, the kernel table as one JSON object, and last
@@ -23,6 +34,7 @@ Then the ``nvidia-smi`` line, the kernel table as one JSON object, and last
 around it, it exits non-zero and prints no result.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -41,6 +53,27 @@ CHECK_PAGES = (64, 65536)       # kernel checks: a small zone and a 256 MiB one
 BATCH_SHAPE = (8, 2048)         # chunks x pages per chunk
 ZONE_BYTES = 256 * 1024 * 1024  # the Figure 2 zone
 INTERP_ZONE_BYTES = 4 * 1024 * 1024
+
+# Attention geometries (H, KV, hd) of every attention model in
+# src/repro/configs: granite-8b and llama-3.2-vision-11b, starcoder2-3b,
+# h2o-danube-1.8b, recurrentgemma-9b, seamless-m4t-large-v2,
+# command-r-plus-104b, deepseek-moe-16b, grok-1-314b.
+CONFIG_GEOMETRIES = ((32, 8, 128), (24, 2, 128), (32, 8, 80), (16, 1, 256),
+                     (16, 16, 64), (96, 8, 128), (16, 16, 128), (48, 8, 128))
+# (B, H, KV, hd, NZ, ZL, MZ) of tests/test_kernels.py:145-149
+TEST_GEOMETRIES = ((1, 4, 4, 32, 4, 16, 2), (2, 8, 2, 64, 8, 32, 3),
+                   (4, 8, 1, 128, 16, 128, 4))
+# granite-8b (src/repro/configs/granite_8b.py) in its compute dtype, bf16:
+# one layer's pool for 64 sequences at a 4K context, with spare zones
+GRANITE = dict(num_zones=4096, zone_len=128, kv_heads=8, head_dim=128,
+               max_zones_per_seq=64)
+GRANITE_HEADS = 32
+# (atol, rtol) of the paged_attn checks: |kernel - ref.py| <= atol + rtol *
+# |ref.py| everywhere. Both compute in float32 from the same inputs, so in
+# float32 they differ by the order of the sums (3.6e-6 at most on an H100),
+# and in bfloat16 the two float32 results may also round to neighbouring
+# bfloat16 values, one step apart: at most 2**-7 of the value.
+PAGED_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-5, 2**-7)}
 
 
 def emit(phase, **fields):
@@ -210,26 +243,54 @@ def phase_device(torch):
     return name, smi_line
 
 
-def phase_build(zf_kernel, _build):
+def ptxas_report(log):
+    """{kernel: [registers, spill-store bytes]} from nvcc's -Xptxas -v log.
+    A kernel is named by its mangled name after the anonymous namespace,
+    cut at the end of its template arguments."""
+    kernels, name = {}, None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            ns = re.match(r"_ZN(\d+)", mangled)
+            name = mangled[ns.end() + int(ns.group(1)):] if ns else mangled
+            name = name.split("EEEv")[0][:48]
+            if name in kernels:
+                name = f"{name}#{len(kernels)}"
+            kernels[name] = [0, 0]
+        elif name and "bytes spill stores" in line:
+            kernels[name][1] = int(line.split("bytes stack frame, ")[1].split()[0])
+        elif name and "Used " in line and " registers" in line:
+            kernels[name][0] = int(line.split("Used ")[1].split(" registers")[0])
+    return kernels
+
+
+def phase_build(kernel_modules, _build):
+    """Build every kernel source at once, one nvcc each, from threads."""
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    zf_kernel.load()
+    with ThreadPoolExecutor(len(kernel_modules)) as pool:
+        failures = [f.exception() for f in
+                    [pool.submit(m.load) for m in kernel_modules]]
     wall = time.perf_counter() - t0
-    nvcc_s = _build.build_seconds.get(zf_kernel.SOURCE.stem)
-    logs = sorted(_build.BUILD_DIR.glob(f"{zf_kernel.SOURCE.stem}-*.log"))
-    regs, spills = [], 0
-    if logs:
-        for line in logs[-1].read_text().splitlines():
-            if "registers" in line:
-                regs.append(int(line.split("Used ")[1].split(" registers")[0]))
-            if "spill" in line and not (" 0 bytes spill stores" in line
-                                        and " 0 bytes spill loads" in line):
-                spills += 1
-    emit("build", nvcc_seconds=nvcc_s if nvcc_s is not None else "cached",
-         load_seconds=wall, kernels_compiled=len(regs),
-         max_registers=max(regs) if regs else None, kernels_with_spills=spills)
+    sources = {}
+    for m, err in zip(kernel_modules, failures):
+        stem = m.SOURCE.stem
+        logs = sorted(_build.BUILD_DIR.glob(f"{stem}-*.log"), key=lambda p: p.stat().st_mtime)
+        kernels = ptxas_report(logs[-1]) if logs else {}
+        regs = [r for r, _ in kernels.values()]
+        nvcc_s = _build.build_seconds.get(stem)
+        sources[stem] = dict(nvcc_seconds=nvcc_s if nvcc_s is not None else "cached",
+                             kernels_compiled=len(kernels),
+                             max_registers=max(regs) if regs else None,
+                             registers_by_kernel={k: r for k, (r, _) in kernels.items()},
+                             spill_store_bytes={k: b for k, (_, b) in kernels.items() if b},
+                             error=None if err is None else str(err)[-2000:])
+    emit("build", load_seconds=wall, sources=sources)
+    bad = [m.SOURCE.name for m, err in zip(kernel_modules, failures) if err is not None]
+    check(not bad, f"build failed: {bad}")
 
 
-def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref):
+def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref):
     """Each kernel against its plain version; returns max_abs_err per kernel."""
     errs = {"filtered_reduce": 0.0, "filtered_reduce_batched": 0.0}
     failures, n_checks = [], 0
@@ -286,11 +347,104 @@ def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref):
         errs["filtered_reduce_batched"] = max(errs["filtered_reduce_batched"], err)
         if not ok:
             failures.append(f"batched {name} vs plain: {rows} vs {want}")
+    paged_errs, paged_shares, paged_checks = paged_attention_checks(
+        torch, pa_kernel, pa_ref, failures)
+    errs["paged_attention"] = max(paged_errs.values())
+    n_checks += paged_checks
     torch.cuda.synchronize()
-    emit("kernels", checks=n_checks, failures=failures[:10], n_failures=len(failures),
-         max_abs_err=errs)
+    emit("kernels", checks=n_checks, paged_attention_checks=paged_checks,
+         paged_attention_max_abs_err=paged_errs,
+         paged_attention_share_of_limit=paged_shares, failures=failures[:10],
+         n_failures=len(failures), max_abs_err=errs)
     check(not failures, f"{len(failures)} kernel checks disagree with the plain version")
     return errs
+
+
+# ------------------------------------------------------------ paged_attn
+
+def paged_tables(rng, B, NZ, ZL, MZ, edges):
+    """(zone_table [B, MZ] int32, lengths [B] int32) on the host: random
+    distinct zones with a -1 tail and a length inside them, as
+    tests/test_kernels.py::_paged_case draws them. With ``edges`` (B >= 5)
+    row 0 has length 0, row 1 an all -1 table, row 2 a -1 hole in a full
+    row, row 3 all MZ*ZL positions and row 4 a length that is a multiple
+    of ZL."""
+    tab = np.full((B, MZ), -1, np.int32)
+    lengths = np.zeros(B, np.int32)
+    for b in range(B):
+        nz = rng.integers(1, MZ + 1)
+        tab[b, :nz] = rng.choice(NZ, size=nz, replace=False)
+        lengths[b] = rng.integers(1, nz * ZL + 1)
+    if edges:
+        lengths[0] = 0
+        tab[1], lengths[1] = -1, 2 * ZL
+        tab[2] = rng.choice(NZ, size=MZ, replace=False)
+        tab[2, MZ // 2] = -1
+        lengths[2] = MZ * ZL
+        tab[3] = rng.choice(NZ, size=MZ, replace=False)
+        lengths[3] = MZ * ZL
+        lengths[4] = (tab[4] >= 0).sum() * ZL
+    return tab, lengths
+
+
+def paged_inputs(torch, B, H, KV, hd, NZ, ZL, MZ, dtype, seed, edges):
+    """q, K, V drawn on the card from a seeded generator; the tables from a
+    seeded numpy draw."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    q = torch.randn(B, H, hd, generator=g, device=DEVICE, dtype=tdt)
+    k = torch.randn(NZ, ZL, KV, hd, generator=g, device=DEVICE, dtype=tdt)
+    v = torch.randn(NZ, ZL, KV, hd, generator=g, device=DEVICE, dtype=tdt)
+    tab, lengths = paged_tables(np.random.default_rng(seed), B, NZ, ZL, MZ, edges)
+    return q, k, v, torch.from_numpy(tab).to(DEVICE), torch.from_numpy(lengths).to(DEVICE)
+
+
+def paged_close(torch, got, want):
+    """(ok, max_abs_err, share) of a paged_attention result against ref.py:
+    ``share`` is the largest |got - want| over its limit in PAGED_TOL, so
+    ok needs a share <= 1, the same dtype and shape, and finite values."""
+    atol, rtol = PAGED_TOL[str(want.dtype).removeprefix("torch.")]
+    diff = (got.float() - want.float()).abs()
+    share = float((diff / (atol + rtol * want.float().abs())).max())
+    ok = (got.dtype == want.dtype and got.shape == want.shape
+          and bool(torch.isfinite(got).all()) and share <= 1.0)
+    return ok, float(diff.max()), share
+
+
+def paged_attention_checks(torch, pa_kernel, pa_ref, failures):
+    """The kernel against ref.py on the card: ({dtype: max_abs_err},
+    {dtype: largest share of the limit}, checks). float32 references run
+    with TF32 off, so their einsums are float32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = []                                      # (label, B, H, KV, hd, NZ, ZL, MZ, edges)
+    for B, H, KV, hd, NZ, ZL, MZ in TEST_GEOMETRIES:
+        cases.append((f"test {H}/{KV}/{hd}", B, H, KV, hd, NZ, ZL, MZ, False))
+        cases.append((f"test {H}/{KV}/{hd} edges", 6, H, KV, hd, NZ, ZL, MZ, True))
+    for H, KV, hd in CONFIG_GEOMETRIES:
+        cases.append((f"config {H}/{KV}/{hd}", 8, H, KV, hd, 64, 16, 6, True))
+    cases.append(("granite-8b pool", 64, GRANITE_HEADS, GRANITE["kv_heads"],
+                  GRANITE["head_dim"], GRANITE["num_zones"], GRANITE["zone_len"],
+                  GRANITE["max_zones_per_seq"], True))
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    shares = dict(errs)
+    n = 0
+    for i, (label, *dims, edges) in enumerate(cases):
+        for dtype in PAGED_TOL:
+            q, k, v, tab, lengths = paged_inputs(torch, *dims, dtype, seed=500 + i,
+                                                 edges=edges)
+            got = pa_kernel.paged_attention_kernel(q, k, v, tab, lengths)
+            want = pa_ref.paged_attention_ref(q, k, v, tab, lengths)
+            n += 1
+            ok, err, share = paged_close(torch, got, want)
+            errs[dtype] = max(errs[dtype], err)
+            shares[dtype] = max(shares[dtype], share)
+            if not ok:
+                failures.append(f"paged_attention {label} {dtype}: max_abs_err {err}, "
+                                f"{share} of the limit")
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return errs, shares, n
 
 
 def phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod, zf_kernel, runs=5):
@@ -365,6 +519,186 @@ def phase_batched(torch, tp, zf_kernel, zf_ops, data):
     return launches
 
 
+# ---------------------------------------------------------------- serving
+
+SERVE_WAVE1 = (32, 2048)        # sequences, history tokens each
+SERVE_WAVE2 = (16, 1024)
+SERVE_STEPS = 8                 # decode steps of each wave
+SERVE_EVICT = 16                # wave-1 sequences evicted before wave 2
+RESIDENT_TOKENS = 4096          # tokens of each resident sequence
+
+
+def phase_serve(torch, KVZonePool, pa_kernel, pa_ref):
+    """Zoned-KV decode at granite-8b width through the port's entry points.
+
+    Wave 1: 32 sequences append a 2,048-token history, then decode 8 steps
+    (one append per sequence, then one attend over all of them). Resident
+    sequences at a 4K context then take every free zone (``extend``, one
+    copy a zone), so the pool is full. 16 wave-1 sequences are evicted (zone
+    resets); wave 2's 16 new sequences append 1,024 tokens each into the
+    reclaimed zones, and all 32 decode 8 steps on ragged lengths. Every
+    attend is held against ref.py after it is timed; after the counted
+    window, two planted faults on each wave's last step must fail the same
+    check. Per step: ``appends_ms`` (host clock, 32 appends and a
+    synchronize), ``attend_ms`` (host clock around attend and a synchronize:
+    zone table, its two copies, the kernel), ``zone_table_ms`` (a second
+    zone_table call, timed alone) and ``kernel_ms`` (CUDA events around the
+    kernel relaunched on the step's tables after the counted window)."""
+    nz, zl = GRANITE["num_zones"], GRANITE["zone_len"]
+    kvh, hd = GRANITE["kv_heads"], GRANITE["head_dim"]
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    tdt = torch.bfloat16
+
+    def tokens(n):
+        return (torch.randn(n, kvh, hd, generator=g, device=DEVICE, dtype=tdt),
+                torch.randn(n, kvh, hd, generator=g, device=DEVICE, dtype=tdt))
+
+    def fill(pool, sid, n):
+        k, v = tokens(n)
+        for t in range(n):
+            pool.append(sid, k[t], v[t])
+
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.perf_counter()
+    pool = KVZonePool(**GRANITE, dtype=tdt, device=DEVICE)
+    pa_kernel.paged_attention_kernel.launches = 0
+    steps, saved, errs, shares, attends = [], [], [], [], 0
+
+    def decode(seqs, wave):
+        nonlocal attends
+        for _ in range(SERVE_STEPS):
+            k, v = tokens(len(seqs))
+            q = torch.randn(len(seqs), GRANITE_HEADS, hd, generator=g, device=DEVICE, dtype=tdt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, sid in enumerate(seqs):
+                pool.append(sid, k[i], v[i])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = pool.attend(seqs, q)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            attends += 1
+            tab, lengths = pool.zone_table(seqs)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            ok, err, share = paged_close(
+                torch, out, pa_ref.paged_attention_ref(q, pool.k, pool.v, tab, lengths))
+            errs.append(err)
+            shares.append(share)
+            check(ok, f"serve wave {wave}: attend differs from ref.py by {err}, "
+                      f"{share} of the limit")
+            saved.append((q, tab, lengths))
+            steps.append(dict(wave=wave, appends_ms=(t1 - t0) * 1e3,
+                              attend_ms=(t2 - t1) * 1e3, zone_table_ms=(t3 - t2) * 1e3,
+                              tokens=int(lengths.sum())))
+
+    wave1 = list(range(SERVE_WAVE1[0]))
+    t = time.perf_counter()
+    for sid in wave1:
+        pool.add_sequence(sid)
+        fill(pool, sid, SERVE_WAVE1[1])
+    torch.cuda.synchronize()
+    history1_s = time.perf_counter() - t
+    decode(wave1, 1)
+    used1 = round(pool.utilization() * nz)
+    zones1 = -(-(SERVE_WAVE1[1] + SERVE_STEPS) // zl)
+    check(used1 == SERVE_WAVE1[0] * zones1, f"wave 1 holds {used1} zones")
+
+    # resident sequences at a 4K context take every free zone
+    t = time.perf_counter()
+    free, per = nz - used1, -(-RESIDENT_TOKENS // zl)
+    residents = -(-free // per)
+    for j in range(residents):
+        pool.add_sequence(10_000 + j)
+        pool.extend(10_000 + j, *tokens(min(per, free - j * per) * zl))
+    torch.cuda.synchronize()
+    residents_s = time.perf_counter() - t
+    check(pool.utilization() == 1.0, f"pool not full: {pool.utilization()}")
+
+    evicted = wave1[:SERVE_EVICT]
+    ev_tab, _ = pool.zone_table(evicted)
+    reclaimed = [int(z) for z in ev_tab.flatten().tolist() if z >= 0]
+    reset0 = pool.stats["zones_reset"]
+    for sid in evicted:
+        pool.evict(sid)
+    check(pool.stats["zones_reset"] - reset0 == SERVE_EVICT * zones1 == len(reclaimed),
+          f"evicting {SERVE_EVICT} sequences reset {pool.stats['zones_reset'] - reset0} zones")
+    util_evicted = pool.utilization()
+    check(util_evicted == (nz - len(reclaimed)) / nz, f"utilization {util_evicted} after evict")
+    alloc0 = pool.stats["zones_allocated"]
+
+    wave2 = [100 + i for i in range(SERVE_WAVE2[0])]
+    t = time.perf_counter()
+    for sid in wave2:
+        pool.add_sequence(sid)
+        fill(pool, sid, SERVE_WAVE2[1])
+    torch.cuda.synchronize()
+    history2_s = time.perf_counter() - t
+    both = wave1[SERVE_EVICT:] + wave2
+    decode(both, 2)
+    w2_tab, _ = pool.zone_table(wave2)
+    w2_zones = [int(z) for z in w2_tab.flatten().tolist() if z >= 0]
+    zones2 = -(-(SERVE_WAVE2[1] + SERVE_STEPS) // zl)
+    new_alloc = pool.stats["zones_allocated"] - alloc0
+    # the free list was the reset zones alone, in reset order (FIFO)
+    check(set(w2_zones) <= set(reclaimed[:new_alloc])
+          and len(w2_zones) == SERVE_WAVE2[0] * zones2,
+          "wave-2 zones are not the reclaimed ones, in reset order")
+    util_end = pool.utilization()
+    check(util_end == (nz - len(reclaimed) + new_alloc) / nz, f"final utilization {util_end}")
+    launches = pa_kernel.paged_attention_kernel.launches
+    check(launches == attends, f"{attends} attends launched the kernel {launches} times")
+    peak = torch.cuda.max_memory_allocated()
+
+    # planted faults, after the counted window: the kernel given a length one
+    # short, or a table without each row's last zone, must fail the check
+    def drop_last_zone(tab, lengths):
+        tab = tab.clone()
+        last = ((lengths.long() - 1) // zl).clamp(min=0)
+        tab[torch.arange(len(tab), device=tab.device), last] = -1
+        return tab, lengths
+    faults = {"length_one_short": lambda tab, lengths: (tab, (lengths - 1).clamp(min=0)),
+              "last_zone_dropped": drop_last_zone}
+    planted = {name: [] for name in faults}
+    for q, tab, lengths in (saved[SERVE_STEPS - 1], saved[-1]):
+        want = pa_ref.paged_attention_ref(q, pool.k, pool.v, tab, lengths)
+        for name, fault in faults.items():
+            got = pa_kernel.paged_attention_kernel(q, pool.k, pool.v, *fault(tab, lengths))
+            ok, err, share = paged_close(torch, got, want)
+            planted[name].append(dict(max_abs_err=err, share_of_limit=share))
+            check(not ok, f"the serve check passed a planted fault: {name}")
+
+    # the kernel alone on each step's tables, after the counted window
+    for st, args in zip(steps, saved):
+        st["kernel_ms"] = cuda_ms(
+            torch, lambda a=args: pa_kernel.paged_attention_kernel(a[0], pool.k, pool.v, *a[1:]),
+            reps=5, warmup=1)
+
+    def med(key, wave=None):
+        return statistics.median(st[key] for st in steps if wave in (None, st["wave"]))
+    per_step = {k: med(k) for k in ("appends_ms", "zone_table_ms", "attend_ms", "kernel_ms")}
+    per_step["step_ms"] = statistics.median(st["appends_ms"] + st["attend_ms"] for st in steps)
+    by_wave = {w: {k: med(k, w) for k in ("appends_ms", "attend_ms", "kernel_ms", "tokens")}
+               for w in (1, 2)}
+    history_tokens = SERVE_WAVE1[0] * SERVE_WAVE1[1] + SERVE_WAVE2[0] * SERVE_WAVE2[1]
+    emit("serve", pool=dict(GRANITE, dtype="bfloat16", heads=GRANITE_HEADS,
+                            bytes=2 * pool.k.numel() * pool.k.element_size()),
+         attends=attends, launches=launches,
+         zones_reset=pool.stats["zones_reset"], zones_allocated=pool.stats["zones_allocated"],
+         tokens_appended=pool.stats["tokens_appended"], residents=residents,
+         reclaimed_zones_reused=new_alloc, utilization_after_evict=util_evicted,
+         utilization_end=util_end, max_abs_err=max(errs), share_of_limit=max(shares),
+         planted_faults=planted, median_per_step=per_step,
+         median_by_wave=by_wave, history_seconds=[history1_s, history2_s],
+         append_us=(history1_s + history2_s) * 1e6 / history_tokens,
+         residents_seconds=residents_s, resident_zones=free,
+         seconds=time.perf_counter() - t_build, max_memory_allocated=peak)
+    del pool, saved
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profiled_ms(torch, fn, reps=10):
     """(device ms per call, kernel names) from torch.profiler: the summed
     device time of what one call runs on the card; (None, []) when the
@@ -412,7 +746,79 @@ def clocks():
     return out.stdout.strip()
 
 
-def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data):
+def paged_timing(torch, pa_kernel, pa_ref):
+    """The paged_attention row at granite-8b width: B=64, H/KV/hd =
+    32/8/128, bf16, a 4,096 x 128-token pool, MZ=64, every sequence 4,096
+    tokens long in 32 distinct zones, then -1. The library yardstick is one
+    scaled_dot_product_attention call (enable_gqa, boolean mask) over a
+    cache gathered beforehand into a contiguous [B, KV, S, hd]; the SDPA
+    call is timed alone and the gather beside it."""
+    import torch.nn.functional as F
+    B, H, KV, hd = 64, GRANITE_HEADS, GRANITE["kv_heads"], GRANITE["head_dim"]
+    NZ, ZL, MZ = GRANITE["num_zones"], GRANITE["zone_len"], GRANITE["max_zones_per_seq"]
+    length = 4096
+    used = length // ZL
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    k = torch.randn(NZ, ZL, KV, hd, generator=g, device=DEVICE, dtype=torch.bfloat16)
+    v = torch.randn(NZ, ZL, KV, hd, generator=g, device=DEVICE, dtype=torch.bfloat16)
+    q = torch.randn(B, H, hd, generator=g, device=DEVICE, dtype=torch.bfloat16)
+    tab = torch.full((B, MZ), -1, dtype=torch.int32, device=DEVICE)
+    tab[:, :used] = torch.randperm(NZ, generator=g, device=DEVICE)[:B * used].reshape(
+        B, used).int()
+    lengths = torch.full((B,), length, dtype=torch.int32, device=DEVICE)
+    pos = torch.arange(MZ * ZL, device=DEVICE)[None, :]
+    valid = (pos < lengths[:, None]) & (tab >= 0).repeat_interleave(ZL, dim=1)
+    n_tok = int(valid.sum())                       # positions this run's data needs
+    n_bytes = (2 * n_tok * KV * hd * k.element_size() + 2 * q.numel() * q.element_size()
+               + tab.numel() * 4 + lengths.numel() * 4)
+    n_ops = 4 * n_tok * H * hd                     # q.k and p.v over every query head
+
+    def kernel():
+        return pa_kernel.paged_attention_kernel(q, k, v, tab, lengths)
+
+    def plain():
+        return pa_ref.paged_attention_ref(q, k, v, tab, lengths)
+
+    cols = -(-int(lengths.max()) // ZL)
+
+    def gather():
+        idx = tab[:, :cols].long().clamp(min=0)
+        return tuple(x[idx].reshape(B, cols * ZL, KV, hd).transpose(1, 2).contiguous()
+                     for x in (k, v))
+    kc, vc = gather()
+    mask = valid[:, None, None, :cols * ZL]
+    q4 = q[:, :, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask, enable_gqa=True)
+    out = kernel()
+    try:
+        lib_out = library()[:, :, 0, :]
+        lib, lib_err = measure(torch, library), None
+        lib_vs_kernel = float((lib_out.float() - out.float()).abs().max())
+    except (TypeError, RuntimeError) as e:   # an SDPA without enable_gqa
+        lib, lib_err, lib_vs_kernel = None, str(e)[:200], None
+    k_t, p_t = measure(torch, kernel), measure(torch, plain, reps=5)
+    gather_ms = cuda_ms(torch, gather, reps=5)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    row = dict(ms=k_t["ms"], device_ms=k_t["device_ms"], host_us=k_t["host_us"],
+               device_kernels=k_t["device_kernels"],
+               plain_ms=p_t["ms"], plain_device_ms=p_t["device_ms"],
+               library_ms=lib["ms"] if lib else None,
+               library_device_ms=lib["device_ms"] if lib else None,
+               library_kernels=lib["device_kernels"] if lib else None,
+               library_error=lib_err, library_vs_kernel_max_abs=lib_vs_kernel,
+               library_gather_ms=gather_ms,
+               bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
+               share_of_bound=b_ms / k_t["ms"], bytes=n_bytes, operations=n_ops,
+               achieved_tb_per_s=n_bytes / k_t["ms"] / 1e9,
+               shape=dict(B=B, H=H, KV=KV, hd=hd, NZ=NZ, ZL=ZL, MZ=MZ, length=length))
+    del k, v, kc, vc
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref):
     """Times at the main path's shape, on a zone already on the card. ``ms``
     is CUDA events around 20 back-to-back calls; ``device_ms`` what the
     profiler saw on the card per call; ``host_us`` the enqueue cost."""
@@ -448,10 +854,11 @@ def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data):
                          bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
                          share_of_bound=b_ms / k["ms"])
     copy_ms = measure(torch, lambda: x.clone())            # a plain 256 MiB read+write
-    emit("timing", shape=list(x.shape), h2d_event_ms=h2d,
-         h2d_gb_per_s=host.numel() * 4 / h2d / 1e6, clone_256MiB=copy_ms,
+    out["paged_attention"] = paged_timing(torch, pa_kernel, pa_ref)
+    emit("timing", shape=list(data.reshape(-1, 1024).shape), h2d_event_ms=h2d,
+         h2d_gb_per_s=data.nbytes / h2d / 1e6, clone_256MiB=copy_ms,
          clocks_after=clocks(), **out)
-    return out["filtered_reduce"], out["filtered_reduce_batched"]
+    return out
 
 
 def main():
@@ -474,27 +881,33 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels.zone_filter import kernel as zf_kernel
     from repro_torch.kernels.zone_filter import ops as zf_ops
+    from repro_torch.kernels.paged_attn import kernel as pa_kernel
+    from repro_torch.kernels.paged_attn import ref as pa_ref
     from repro_torch.kernels.zone_filter import ref as zf_ref
+    from repro_torch.serve import KVZonePool
     from repro_torch.zns import ZonedDevice
 
     t_start = time.perf_counter()
     try:
         name, smi_line = phase_device(torch)
-        phase_build(zf_kernel, _build)
-        errs = phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref)
+        phase_build([zf_kernel, pa_kernel], _build)
+        errs = phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref)
         _, data, launches = phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod, zf_kernel)
         launches["filtered_reduce_batched"] = phase_batched(torch, tp, zf_kernel, zf_ops, data)
-        single, batched = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data)
+        launches["paged_attention"] = phase_serve(torch, KVZonePool, pa_kernel, pa_ref)
+        times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref)
     except PhaseFailed as e:
         emit("failed", error=str(e))
         return 1
-    source = "src/repro_torch/kernels/zone_filter/csrc/zone_filter.cu"
+    zf_source = "src/repro_torch/kernels/zone_filter/csrc/zone_filter.cu"
     table = []
-    for kname, t, replaces in (
-            ("filtered_reduce", single,
-             "src/repro/kernels/zone_filter/kernel.py:75"),
-            ("filtered_reduce_batched", batched,
-             "src/repro/kernels/zone_filter/kernel.py:147")):
+    for kname, source, replaces in (
+            ("filtered_reduce", zf_source, "src/repro/kernels/zone_filter/kernel.py:75"),
+            ("filtered_reduce_batched", zf_source,
+             "src/repro/kernels/zone_filter/kernel.py:147"),
+            ("paged_attention", "src/repro_torch/kernels/paged_attn/csrc/paged_attn.cu",
+             "src/repro/kernels/paged_attn/kernel.py:73")):
+        t = times[kname]
         table.append({"name": kname, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": launches[kname],
                       "max_abs_err": errs[kname], "ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -3,7 +3,8 @@
 Each kernel source has a plain C interface and is compiled by ``nvcc`` into
 its own shared library, loaded with :mod:`ctypes`. The build runs at first
 use, never at import, and is keyed by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one loads in milliseconds. The
+an edited source rebuilds and an unchanged one loads in milliseconds.
+Different sources build in parallel when loaded from several threads. The
 libraries go to ``build/repro_torch_kernels/`` at the root of the checkout.
 """
 from __future__ import annotations
@@ -23,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_locks: dict[Path, threading.Lock] = {}     # one per library: sources build in parallel
 _loaded: dict[Path, ctypes.CDLL] = {}
 # seconds nvcc took for each library this process built (absent when the
 # library was already on disk)
@@ -51,7 +53,9 @@ def load_library(source: Path) -> ctypes.CDLL:
     key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()
                          ).hexdigest()[:16]
     lib_path = BUILD_DIR / f"{source.stem}-{key}.so"
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(lib_path, threading.Lock())
+    with lock:
         lib = _loaded.get(lib_path)
         if lib is not None:
             return lib

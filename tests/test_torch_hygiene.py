@@ -19,7 +19,8 @@ from repro_torch.zns import ZonedDevice
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = ["repro_torch", "repro_torch.core", "repro_torch.zns",
-           "repro_torch.kernels.zone_filter"]
+           "repro_torch.kernels.zone_filter", "repro_torch.kernels.paged_attn",
+           "repro_torch.serve"]
 
 
 def test_port_import_leaves_jax_and_repro_out():
@@ -40,7 +41,8 @@ def test_port_sources_import_no_jax_or_repro():
                          r"from repro\.|from repro import)", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 17
+    assert len(files) > 24
+    assert ROOT / "src" / "repro_torch" / "serve" / "kv_zones.py" in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []
