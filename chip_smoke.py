@@ -14,10 +14,11 @@ Phases, one JSON line each; any failed phase exits non-zero:
             against single launches. Exact for counts, integers, min and max;
             float sums within rtol 1e-5 of the sum of the magnitudes they add.
             paged_attn: the reference tests' geometries, every attention
-            geometry of src/repro/configs and the granite-8b pool, in float32
-            and bfloat16 (within PAGED_TOL), on random tables with -1 tails,
-            ragged and full lengths, a length-0 row, an all -1 row and a -1
-            hole.
+            geometry of src/repro/configs, one geometry of several splits
+            and the granite-8b pool, in float32 and bfloat16 (within
+            PAGED_TOL), on random tables with -1 tails, ragged and full
+            lengths, a length-0 row, an all -1 row, a -1 hole, and rows at
+            the kernel's split boundaries.
   offload   the paper's Figure 2 offload through NvmCsd: one 256 MiB zone of
             random int32, count > RAND_MAX/2, on the kernel and jit tiers
             (interp on a 4 MiB zone); launch counts read around the run
@@ -27,7 +28,8 @@ Phases, one JSON line each; any failed phase exits non-zero:
             them and zone reuse; every attend held against the plain version,
             and two planted faults (a length one short, a last zone dropped)
             that this check must reject
-  timing    kernel, plain-version and library times on the card (CUDA events)
+  timing    kernel, plain-version and library times on the card (CUDA events),
+            with the device kernels one call runs
 
 Then the ``nvidia-smi`` line, the kernel table as one JSON object, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -63,6 +65,11 @@ CONFIG_GEOMETRIES = ((32, 8, 128), (24, 2, 128), (32, 8, 80), (16, 1, 256),
 # (B, H, KV, hd, NZ, ZL, MZ) of tests/test_kernels.py:145-149
 TEST_GEOMETRIES = ((1, 4, 4, 32, 4, 16, 2), (2, 8, 2, 64, 8, 32, 3),
                    (4, 8, 1, 128, 16, 128, 4))
+# every geometry above is one split of the kernel (kernel.py::split_layout);
+# this one has three at a small ZL (16 zones a split), so the small head
+# widths and the edge rows reach the combine as the granite pool's 32 do
+SPLIT_GEOMETRY = (8, 8, 2, 64, 64, 16, 48)
+EDGE_ROWS = 8                   # paged_tables(edges=True) sets rows 0..7
 # granite-8b (src/repro/configs/granite_8b.py) in its compute dtype, bf16:
 # one layer's pool for 64 sequences at a 4K context, with spare zones
 GRANITE = dict(num_zones=4096, zone_len=128, kv_heads=8, head_dim=128,
@@ -362,13 +369,17 @@ def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref):
 
 # ------------------------------------------------------------ paged_attn
 
-def paged_tables(rng, B, NZ, ZL, MZ, edges):
+def paged_tables(rng, B, NZ, ZL, MZ, edges, zps):
     """(zone_table [B, MZ] int32, lengths [B] int32) on the host: random
     distinct zones with a -1 tail and a length inside them, as
-    tests/test_kernels.py::_paged_case draws them. With ``edges`` (B >= 5)
-    row 0 has length 0, row 1 an all -1 table, row 2 a -1 hole in a full
-    row, row 3 all MZ*ZL positions and row 4 a length that is a multiple
-    of ZL."""
+    tests/test_kernels.py::_paged_case draws them. With ``edges`` (B >=
+    EDGE_ROWS) row 0 has length 0, row 1 an all -1 table, row 2 a -1 hole
+    in a full row, row 3 all MZ*ZL positions and row 4 a length that is a
+    multiple of ZL. Rows 5-7 sit at the kernel's splits of ``zps`` zones, in
+    full rows: row 5 has its second split all -1, row 6 valid zones in its
+    last split only, row 7 a length one token past the first split's end.
+    In a one-split table rows 5 and 6 keep only their last zone and row 7
+    one token of its last zone."""
     tab = np.full((B, MZ), -1, np.int32)
     lengths = np.zeros(B, np.int32)
     for b in range(B):
@@ -384,10 +395,20 @@ def paged_tables(rng, B, NZ, ZL, MZ, edges):
         tab[3] = rng.choice(NZ, size=MZ, replace=False)
         lengths[3] = MZ * ZL
         lengths[4] = (tab[4] >= 0).sum() * ZL
+        for r in (5, 6, 7):
+            tab[r] = rng.choice(NZ, size=MZ, replace=False)
+            lengths[r] = MZ * ZL
+        if zps < MZ:
+            tab[5, zps:2 * zps] = -1
+            tab[6, :(-(-MZ // zps) - 1) * zps] = -1
+            lengths[7] = zps * ZL + 1
+        else:
+            tab[5:7, :MZ - 1] = -1
+            lengths[7] = (MZ - 1) * ZL + 1
     return tab, lengths
 
 
-def paged_inputs(torch, B, H, KV, hd, NZ, ZL, MZ, dtype, seed, edges):
+def paged_inputs(torch, B, H, KV, hd, NZ, ZL, MZ, dtype, seed, edges, zps):
     """q, K, V drawn on the card from a seeded generator; the tables from a
     seeded numpy draw."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -395,7 +416,7 @@ def paged_inputs(torch, B, H, KV, hd, NZ, ZL, MZ, dtype, seed, edges):
     q = torch.randn(B, H, hd, generator=g, device=DEVICE, dtype=tdt)
     k = torch.randn(NZ, ZL, KV, hd, generator=g, device=DEVICE, dtype=tdt)
     v = torch.randn(NZ, ZL, KV, hd, generator=g, device=DEVICE, dtype=tdt)
-    tab, lengths = paged_tables(np.random.default_rng(seed), B, NZ, ZL, MZ, edges)
+    tab, lengths = paged_tables(np.random.default_rng(seed), B, NZ, ZL, MZ, edges, zps)
     return q, k, v, torch.from_numpy(tab).to(DEVICE), torch.from_numpy(lengths).to(DEVICE)
 
 
@@ -420,9 +441,12 @@ def paged_attention_checks(torch, pa_kernel, pa_ref, failures):
     cases = []                                      # (label, B, H, KV, hd, NZ, ZL, MZ, edges)
     for B, H, KV, hd, NZ, ZL, MZ in TEST_GEOMETRIES:
         cases.append((f"test {H}/{KV}/{hd}", B, H, KV, hd, NZ, ZL, MZ, False))
-        cases.append((f"test {H}/{KV}/{hd} edges", 6, H, KV, hd, NZ, ZL, MZ, True))
+        cases.append((f"test {H}/{KV}/{hd} edges", EDGE_ROWS, H, KV, hd, NZ, ZL, MZ, True))
     for H, KV, hd in CONFIG_GEOMETRIES:
-        cases.append((f"config {H}/{KV}/{hd}", 8, H, KV, hd, 64, 16, 6, True))
+        cases.append((f"config {H}/{KV}/{hd}", EDGE_ROWS, H, KV, hd, 64, 16, 6, True))
+    B, H, KV, hd, NZ, ZL, MZ = SPLIT_GEOMETRY
+    cases.append((f"splits {H}/{KV}/{hd}", B, H, KV, hd, NZ, ZL, MZ, False))
+    cases.append((f"splits {H}/{KV}/{hd} edges", B, H, KV, hd, NZ, ZL, MZ, True))
     cases.append(("granite-8b pool", 64, GRANITE_HEADS, GRANITE["kv_heads"],
                   GRANITE["head_dim"], GRANITE["num_zones"], GRANITE["zone_len"],
                   GRANITE["max_zones_per_seq"], True))
@@ -430,9 +454,10 @@ def paged_attention_checks(torch, pa_kernel, pa_ref, failures):
     shares = dict(errs)
     n = 0
     for i, (label, *dims, edges) in enumerate(cases):
+        zps = pa_kernel.split_layout(dims[6], dims[5])[0]
         for dtype in PAGED_TOL:
             q, k, v, tab, lengths = paged_inputs(torch, *dims, dtype, seed=500 + i,
-                                                 edges=edges)
+                                                 edges=edges, zps=zps)
             got = pa_kernel.paged_attention_kernel(q, k, v, tab, lengths)
             want = pa_ref.paged_attention_ref(q, k, v, tab, lengths)
             n += 1
@@ -700,9 +725,10 @@ def phase_serve(torch, KVZonePool, pa_kernel, pa_ref):
 
 
 def profiled_ms(torch, fn, reps=10):
-    """(device ms per call, kernel names) from torch.profiler: the summed
-    device time of what one call runs on the card; (None, []) when the
-    profiler records no device time."""
+    """(device ms per call, {kernel name: its device ms per call}, device
+    launches per call) from torch.profiler: the summed device time of what
+    one call runs on the card; (None, {}, None) when the profiler records
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -710,15 +736,18 @@ def profiled_ms(torch, fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, names = 0.0, []
+    total_us, names, count = 0.0, {}, 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0:
             total_us += us
-            names.append(e.key[:60])
-    return (total_us / reps / 1e3 if total_us else None), names
+            names[e.key[:60]] = us / reps / 1e3
+            count += e.count
+    if not total_us:
+        return None, {}, None
+    return total_us / reps / 1e3, names, count / reps
 
 
 def host_us(torch, fn, reps=50):
@@ -734,9 +763,10 @@ def host_us(torch, fn, reps=50):
 
 
 def measure(torch, fn, reps=20):
-    dev_ms, names = profiled_ms(torch, fn)
+    dev_ms, names, per_call = profiled_ms(torch, fn)
     return dict(ms=cuda_ms(torch, fn, reps=reps), device_ms=dev_ms,
-                host_us=host_us(torch, fn), device_kernels=names)
+                host_us=host_us(torch, fn), device_kernels=names,
+                device_launches_per_call=per_call)
 
 
 def clocks():
@@ -803,6 +833,7 @@ def paged_timing(torch, pa_kernel, pa_ref):
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     row = dict(ms=k_t["ms"], device_ms=k_t["device_ms"], host_us=k_t["host_us"],
                device_kernels=k_t["device_kernels"],
+               device_launches_per_call=k_t["device_launches_per_call"],
                plain_ms=p_t["ms"], plain_device_ms=p_t["device_ms"],
                library_ms=lib["ms"] if lib else None,
                library_device_ms=lib["device_ms"] if lib else None,
@@ -849,6 +880,7 @@ def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref):
         b_ms, b_by = bound_ms(n_bytes, nops)
         out[name] = dict(ms=k["ms"], device_ms=k["device_ms"], host_us=k["host_us"],
                          device_kernels=k["device_kernels"],
+                         device_launches_per_call=k["device_launches_per_call"],
                          plain_ms=p["ms"], plain_device_ms=p["device_ms"],
                          library_ms=lib["ms"], library_device_ms=lib["device_ms"],
                          bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,

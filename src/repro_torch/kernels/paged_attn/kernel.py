@@ -6,9 +6,11 @@ decode step of attention for each sequence, read in place from a zoned KV
 pool through its zone table. The zone table and the lengths stay on the
 card; the launch needs no host sync.
 
+On the card one call runs two kernels: ``paged_partial`` over runs of
+zones (``split_layout``) into a float32 workspace, then ``paged_combine``.
 A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a CUDA
-tensor launches the kernel or raises. The wrapper counts its launches in
-its ``launches`` attribute.
+tensor launches both kernels or raises. The wrapper counts its calls that
+launched in its ``launches`` attribute.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attn.ref import paged_attention_ref
 
-__all__ = ["paged_attention_kernel", "load", "SOURCE", "MAX_HEAD_DIM"]
+__all__ = ["paged_attention_kernel", "split_layout", "load", "SOURCE", "MAX_HEAD_DIM"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attn.cu"
 MAX_HEAD_DIM = 256
@@ -34,10 +36,19 @@ def load() -> ctypes.CDLL:
     """Build (first use only) and load the kernel library."""
     lib = _build.load_library(SOURCE)
     fn = lib.pa_paged_attention
-    fn.argtypes = [ctypes.c_int, *[ctypes.c_void_p] * 6, *[ctypes.c_int] * 7,
+    fn.argtypes = [ctypes.c_int, *[ctypes.c_void_p] * 7, *[ctypes.c_int] * 9,
                    ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.pa_workspace_floats.argtypes = [ctypes.c_int] * 5
+    lib.pa_workspace_floats.restype = ctypes.c_longlong
     return lib
+
+
+def split_layout(MZ: int, ZL: int) -> tuple[int, int]:
+    """(zones a split, splits) for a table of ``MZ`` zones of ``ZL`` tokens:
+    about 256 tokens a split. From shapes alone, so no host sync."""
+    zps = max(1, 256 // ZL)
+    return zps, -(-MZ // zps)
 
 
 def _check(q, k_zones, v_zones, zone_table, lengths) -> None:
@@ -97,11 +108,18 @@ def paged_attention_kernel(q: torch.Tensor, k_zones: torch.Tensor,
         return out
     B, H, hd = q.shape
     NZ, ZL, KV, _ = k_zones.shape
+    MZ = zone_table.shape[1]
+    zps, S = split_layout(MZ, ZL)
+    lib = load()
+    floats = lib.pa_workspace_floats(B, H, KV, hd, S)
+    if floats < 0:
+        raise ValueError(f"unsupported sizes B={B}, H={H}, KV={KV}, hd={hd}, {S} splits")
+    ws = torch.empty(floats, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = load().pa_paged_attention(
+    err = lib.pa_paged_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_zones.data_ptr(), v_zones.data_ptr(),
-        zone_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, KV, hd, NZ, ZL, zone_table.shape[1], hd ** -0.5, stream)
+        zone_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        B, H, KV, hd, NZ, ZL, MZ, zps, S, hd ** -0.5, stream)
     if err:
         raise RuntimeError(f"paged_attn kernel launch failed: cudaError {err}")
     paged_attention_kernel.launches += 1

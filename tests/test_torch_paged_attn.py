@@ -17,7 +17,8 @@ from repro.kernels.paged_attn.ops import paged_attention as jax_paged_attention
 from repro.kernels.paged_attn.ref import paged_attention_ref as jax_paged_attention_ref
 from repro_torch.kernels.paged_attn import kernel as pa_kernel
 from repro_torch.kernels.paged_attn import paged_attention
-from repro_torch.kernels.paged_attn.ref import paged_attention_ref
+from repro_torch.kernels.paged_attn.ref import (paged_attention_ref,
+                                                paged_attention_split_ref)
 from repro_torch.serve import KVZonePool
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -211,3 +212,104 @@ def test_kernel_checks_accept_the_main_path_shapes():
     for dtype in ("float32", "bfloat16"):
         _, tx = _inputs(2, 32, 8, 80, 6, 16, 3, seed=1, dtype=dtype)
         pa_kernel._check(*tx)
+
+
+# ------------------------------------------------- the kernel's split algebra
+
+# (B, H, KV, hd, NZ, ZL, MZ) with several splits: split_layout gives 8 zones
+# a split, 3 splits, the last of them short
+SPLIT_GEOMETRY = (3, 8, 2, 32, 24, 32, 20)
+_NZ, _ZL, _MZ = SPLIT_GEOMETRY[4:]
+ZONES_PER_SPLIT = {"one": 1, "two": 2, "whole_row": _MZ,
+                   "split_layout": pa_kernel.split_layout(_MZ, _ZL)[0]}
+
+
+def _full_row(ztab, lengths):
+    """Row 0 holds MZ distinct zones, every position valid."""
+    ztab[0] = np.random.default_rng(0).choice(_NZ, size=_MZ, replace=False)
+    lengths[0] = _MZ * _ZL
+
+
+def _first_split_zones(zps):
+    """The zones before row 0's last split: all of them but its last zone
+    when the row is one split."""
+    S = -(-_MZ // zps)
+    return (S - 1) * zps if S > 1 else _MZ - 1
+
+
+def _split_length_zero(ztab, lengths, zps):
+    lengths[0] = 0
+
+
+def _split_all_minus_one(ztab, lengths, zps):
+    ztab[0] = -1
+    lengths[0] = 2 * _ZL
+
+
+def _split_hole(ztab, lengths, zps):
+    _full_row(ztab, lengths)
+    ztab[0, _MZ // 2] = -1
+
+
+def _split_full_length(ztab, lengths, zps):
+    _full_row(ztab, lengths)
+
+
+def _split_length_multiple_of_zl(ztab, lengths, zps):
+    lengths[0] = (ztab[0] >= 0).sum() * _ZL
+
+
+def _minus_one_run_over_a_split(ztab, lengths, zps):
+    """The second split all -1 (all zones but the last in a one-split row)."""
+    _full_row(ztab, lengths)
+    if zps < _MZ:
+        ztab[0, zps:2 * zps] = -1
+    else:
+        ztab[0, :_MZ - 1] = -1
+
+
+def _valid_only_in_last_split(ztab, lengths, zps):
+    _full_row(ztab, lengths)
+    ztab[0, :_first_split_zones(zps)] = -1
+
+
+def _one_past_a_split_boundary(ztab, lengths, zps):
+    _full_row(ztab, lengths)
+    lengths[0] = (zps if zps < _MZ else _MZ - 1) * _ZL + 1
+
+
+SPLIT_EDGES = {
+    "length_zero": _split_length_zero, "all_minus_one": _split_all_minus_one,
+    "hole": _split_hole, "full_length": _split_full_length,
+    "length_multiple_of_zl": _split_length_multiple_of_zl,
+    "minus_one_run_over_a_split": _minus_one_run_over_a_split,
+    "valid_only_in_last_split": _valid_only_in_last_split,
+    "one_past_a_split_boundary": _one_past_a_split_boundary,
+}
+_jax_outputs = {}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("zps", sorted(ZONES_PER_SPLIT))
+@pytest.mark.parametrize("edge", sorted(SPLIT_EDGES))
+def test_split_reference_matches_reference(edge, zps, dtype):
+    """The kernel's split algebra (per-split softmax states, the uniform rule
+    for a row with no valid position, -1e30/0 for a split that reads
+    nothing, and their combine) against the JAX package's kernel and its
+    jnp oracle."""
+    zps = ZONES_PER_SPLIT[zps]
+    jx, tx = _inputs(*SPLIT_GEOMETRY, seed=31, dtype=dtype,
+                     edit=lambda t, n: SPLIT_EDGES[edge](t, n, zps))
+    key = (np.asarray(jx[3]).tobytes(), np.asarray(jx[4]).tobytes(), dtype)
+    if key not in _jax_outputs:
+        _jax_outputs[key] = (jax_paged_attention(*jx, interpret=True),
+                             jax_paged_attention_ref(*jx))
+    got = paged_attention_split_ref(*tx, zones_per_split=zps)
+    for want in _jax_outputs[key]:
+        _assert_close(got, want, TOL[dtype])
+
+
+def test_split_layout_at_granite_width():
+    """128-token zones, 64 a sequence: two zones (256 tokens) a split."""
+    assert pa_kernel.split_layout(64, 128) == (2, 32)
+    assert pa_kernel.split_layout(_MZ, _ZL) == (8, 3)
