@@ -13,6 +13,10 @@ Phases, one JSON line each; any failed phase exits non-zero:
             and the edge programs, at 64 and 65,536 pages; batched rows
             against single launches. Exact for counts, integers, min and max;
             float sums within rtol 1e-5 of the sum of the magnitudes they add.
+            Batched rows at 8 x 2,048 pages (float sums within rtol 1e-5
+            of each row's sum) and at the array's 512 x 64 (of each row's
+            summed magnitudes: a 65,536-value row of mixed signs may sum
+            near zero).
             paged_attn: the reference tests' geometries, every attention
             geometry of src/repro/configs, one geometry of several splits
             and the granite-8b pool, in float32 and bfloat16 (within
@@ -22,6 +26,14 @@ Phases, one JSON line each; any failed phase exits non-zero:
   offload   the paper's Figure 2 offload through NvmCsd: one 256 MiB zone of
             random int32, count > RAND_MAX/2, on the kernel and jit tiers
             (interp on a 4 MiB zone); launch counts read around the run
+  array     the same zone striped over a StripedZoneArray and offloaded
+            through OffloadScheduler on the kernel tier: raid0 at widths 1,
+            2, 4 and 8, and xor at width 4 with member 1 offline (its chunks
+            reconstructed on the host and run one by one); 256 KiB chunks
+            in 2 groups of 512, one batched launch a group. Each count
+            against numpy's and NvmCsd's; the dispatches, launches and
+            host-to-card copies and bytes against the plan's arithmetic;
+            a partial extent's tail chunk at width 4
   batched   the chunk-batched kernel entry over the same zone as 8 chunks
   serve     zoned-KV decode through KVZonePool at granite-8b width on a
             4,096-zone bf16 pool: two waves of sequences, an eviction between
@@ -35,6 +47,7 @@ Then the ``nvidia-smi`` line, the kernel table as one JSON object, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
 around it, it exits non-zero and prints no result.
 """
+import gc
 import json
 import re
 import statistics
@@ -52,9 +65,14 @@ VECTOR_OPS_PER_S = 67e12       # H100 SXM non-tensor float32 rate, used for ALU 
 PAGE_BYTES = 4096
 DEVICE = "cuda"
 CHECK_PAGES = (64, 65536)       # kernel checks: a small zone and a 256 MiB one
-BATCH_SHAPE = (8, 2048)         # chunks x pages per chunk
+BATCH_SHAPES = ((8, 2048), (512, 64))   # chunks x pages: 8 chunks, the array's dispatch
 ZONE_BYTES = 256 * 1024 * 1024  # the Figure 2 zone
 INTERP_ZONE_BYTES = 4 * 1024 * 1024
+ARRAY_STRIPE = 64               # blocks a chunk: 256 KiB (benchmarks/bench_array.py:42)
+# (redundancy, members, member taken offline)
+ARRAY_RUNS = (("raid0", 1, None), ("raid0", 2, None), ("raid0", 4, None),
+              ("raid0", 8, None), ("xor", 4, 1))
+ARRAY_TAIL_BLOCKS = 32          # a partial extent ends this far before the zone's end
 
 # Attention geometries (H, KV, hd) of every attention model in
 # src/repro/configs: granite-8b and llama-3.2-vision-11b, starcoder2-3b,
@@ -83,8 +101,13 @@ GRANITE_HEADS = 32
 PAGED_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-5, 2**-7)}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _T0, **fields}),
+          flush=True)
 
 
 class PhaseFailed(Exception):
@@ -334,26 +357,31 @@ def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref):
             if not ok:
                 failures.append(f"{name}@{n_pages}: {got} vs {want}")
         del data
-    # batched: 8 chunks x 2,048 pages, each row equal to the single launch
-    for i, (name, dtype, prog) in enumerate(cases):
-        x = card_pages(torch, dtype, BATCH_SHAPE[0] * BATCH_SHAPE[1], seed=100 + i).reshape(
-            *BATCH_SHAPE, -1)
+    # batched: each row equal to the single launch
+    for i, ((name, dtype, prog), shape) in enumerate(
+            (case, shape) for shape in BATCH_SHAPES for case in cases):
+        x = card_pages(torch, dtype, shape[0] * shape[1], seed=100 + i).reshape(*shape, -1)
         ops, imms = zf_ops.encode_program(prog, DEVICE)
         kind = zf_ops.TERM_KIND[prog.terminal.op]
         rows = zf_kernel.filtered_reduce_batched(x, kind=kind, ops=ops, imms=imms)
         single = torch.stack([zf_kernel.filtered_reduce(c, kind=kind, ops=ops, imms=imms)
                               for c in x])
-        want = zf_ref.filtered_reduce_batched_ref(
-            x, kind, zf_ref.decode_transform(ops, imms, u32=dtype == "uint32"))
+        transform = zf_ref.decode_transform(ops, imms, u32=dtype == "uint32")
+        want = zf_ref.filtered_reduce_batched_ref(x, kind, transform)
         n_checks += 2
         same, _ = compare(torch, rows, single, False)
         if not same:
-            failures.append(f"batched {name}: rows {rows} vs single {single}")
-        mag = as_f64(torch, want).abs() if kind == "sum" else None
+            failures.append(f"batched {name}@{shape}: rows {rows} vs single {single}")
+        mag = None
+        if kind == "sum" and shape == BATCH_SHAPES[0]:
+            mag = as_f64(torch, want).abs()
+        elif kind == "sum":     # each row's summed magnitudes, as the single checks
+            vals, mask = transform(x.reshape(shape[0], -1))
+            mag = torch.where(mask, vals, 0).to(torch.float32).to(torch.float64).abs().sum(1)
         ok, err = compare(torch, rows, want, kind == "sum", mag)
         errs["filtered_reduce_batched"] = max(errs["filtered_reduce_batched"], err)
         if not ok:
-            failures.append(f"batched {name} vs plain: {rows} vs {want}")
+            failures.append(f"batched {name}@{shape} vs plain: {rows} vs {want}")
     paged_errs, paged_shares, paged_checks = paged_attention_checks(
         torch, pa_kernel, pa_ref, failures)
     errs["paged_attention"] = max(paged_errs.values())
@@ -486,7 +514,7 @@ def phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod, zf_kernel, runs=5):
 
     zf_kernel.filtered_reduce.launches = 0
     zf_kernel.filtered_reduce_batched.launches = 0
-    copies0 = csd_mod.stage_extent.copies
+    copies0 = csd_mod.h2d.snapshot()[0]
     tiers = {}
     for tier in ("kernel", "jit"):
         per_run = []
@@ -507,7 +535,7 @@ def phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod, zf_kernel, runs=5):
             movement_saved_bytes=cold.movement_saved_bytes)
     launches = {"filtered_reduce": zf_kernel.filtered_reduce.launches,
                 "filtered_reduce_batched": zf_kernel.filtered_reduce_batched.launches}
-    copies = csd_mod.stage_extent.copies - copies0
+    copies = csd_mod.h2d.snapshot()[0] - copies0
     check(launches["filtered_reduce"] == runs + 1,
           f"kernel tier launched filtered_reduce {launches['filtered_reduce']} times")
     check(copies == 2 * (runs + 1), f"{copies} host-to-card copies for {2 * (runs + 1)} offloads")
@@ -526,7 +554,145 @@ def phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod, zf_kernel, runs=5):
     emit("offload", zone_bytes=dev.zone_bytes, fill_seconds=fill_s, expected=expected,
          tiers=tiers, launches=launches, h2d_copies=copies,
          max_memory_allocated=peak)
-    return dev, data, launches
+    csd_mod.unpin_zone_memory(dev)
+    return data, launches, tiers["kernel"]["value"]
+
+
+def build_array(ZonedDevice, StripedZoneArray, mode, n):
+    """A ``mode`` array of ``n`` members, each zone the logical zone over
+    the data members, rounded up to whole stripes."""
+    data_members = {"raid0": n, "raid1": n // 2, "xor": n - 1}[mode]
+    stripe_bytes = ARRAY_STRIPE * PAGE_BYTES
+    stripes = -(-ZONE_BYTES // (stripe_bytes * data_members))
+    members = [ZonedDevice(num_zones=1, zone_bytes=stripes * stripe_bytes)
+               for _ in range(n)]
+    return StripedZoneArray(members, stripe_blocks=ARRAY_STRIPE, redundancy=mode)
+
+
+def array_plan(array_mod, array, n_blocks, prefetch_depth=2):
+    """What the scheduler must do for one offload of ``n_blocks``, from
+    the reference's arithmetic (``src/repro/array/scheduler.py:951-1000``):
+    full chunks read directly go in groups of ``m_b`` (a power of two, at
+    least 2), one batched dispatch a group, each member's contiguous run in
+    a group one copy to the card; every other chunk runs alone, one copy
+    and one single launch each."""
+    chunks = array.chunks(0, 0, n_blocks)
+    full = [c for c in chunks if not c.reconstruct and c.n_blocks == ARRAY_STRIPE]
+    if len(full) < 2:
+        full = []
+    alone = len(chunks) - len(full)
+    groups = []
+    if full:
+        n_groups = min(prefetch_depth, len(full))
+        m_b = max(1 << (-(-len(full) // n_groups) - 1).bit_length(), 2)
+        groups = [full[i:i + m_b] for i in range(0, len(full), m_b)]
+    runs = sum(len(array_mod.striping.coalesce_member_runs(g, ARRAY_STRIPE)) for g in groups)
+    return dict(n_chunks=len(chunks), batched_chunks=len(full), n_dispatches=len(groups),
+                degraded_reads=sum(c.degraded for c in chunks), singles=alone,
+                copies=runs + alone, bytes=n_blocks * PAGE_BYTES)
+
+
+def phase_array(torch, tp, ZonedDevice, array_mod, csd_mod, trace, zf_kernel, data,
+                csd_count, runs=5):
+    """The Figure 2 zone striped over each layout of ARRAY_RUNS and offloaded
+    through ``OffloadScheduler(device="cuda")`` on the kernel tier, with the
+    scheduler's defaults (pages_per_read=1, prefetch_depth=2). Per layout:
+    one cold and ``runs`` warm offloads of the whole zone, then one traced
+    with the repo's span tracer (``trace_ms``: each span's summed ms in that
+    offload, by name), each count equal to numpy's and NvmCsd's, each
+    offload's stats, launches and host-to-card copies equal to
+    :func:`array_plan`; at width 4 one more offload of a partial extent
+    whose last chunk is a tail. Reports the median warm offload (host clock
+    around ``run_and_fetch``) and the medians of the stages in
+    ``ArrayOffloadStats``."""
+    t_phase = time.perf_counter()
+    program = tp.filter_count("int32", "gt", RAND_MAX // 2)
+    n_blocks = ZONE_BYTES // PAGE_BYTES
+    expected = int((data > RAND_MAX // 2).sum())
+    check(expected == csd_count, f"NvmCsd counted {csd_count}, numpy {expected}")
+    tail_blocks = n_blocks - ARRAY_TAIL_BLOCKS
+    tail_expected = int((data[:tail_blocks * PAGE_BYTES // 4] > RAND_MAX // 2).sum())
+    zf_kernel.filtered_reduce.launches = 0
+    zf_kernel.filtered_reduce_batched.launches = 0
+    launches = {"filtered_reduce": 0, "filtered_reduce_batched": 0}
+    rows = []
+    for mode, n, dead in ARRAY_RUNS:
+        t0 = time.perf_counter()
+        array = build_array(ZonedDevice, array_mod.StripedZoneArray, mode, n)
+        array.zone_append(0, data)
+        if dead is not None:
+            array.set_offline(0, device=dead)
+        fill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sched = array_mod.OffloadScheduler(array, default_tier="kernel", device=DEVICE)
+        pin_s = time.perf_counter() - t0
+        extents = [n_blocks] * (runs + 2) + ([tail_blocks] if n == 4 and dead is None else [])
+        label = f"{mode}x{n}" + (f" member {dead} offline" if dead is not None else "")
+        per_run = []
+        for k, extent in enumerate(extents):
+            plan = array_plan(array_mod, array, extent)
+            before = (zf_kernel.filtered_reduce.launches,
+                      zf_kernel.filtered_reduce_batched.launches, *csd_mod.h2d.snapshot())
+            traced = k == runs + 1
+            m0 = time.monotonic()           # the tracer's clock
+            t = time.perf_counter()
+            with trace.tracing(traced):
+                value, st = sched.run_and_fetch(program, 0, n_blocks=extent)
+            wall = time.perf_counter() - t
+            after = (zf_kernel.filtered_reduce.launches,
+                     zf_kernel.filtered_reduce_batched.launches, *csd_mod.h2d.snapshot())
+            single, batched, copies, nbytes = (a - b for a, b in zip(after, before))
+            want = expected if extent == n_blocks else tail_expected
+            check(int(value) == want, f"{label}: counted {int(value)}, numpy {want}")
+            got = dict(n_chunks=st.n_chunks, batched_chunks=st.batched_chunks,
+                       n_dispatches=st.n_dispatches, degraded_reads=st.degraded_reads,
+                       singles=single, copies=copies, bytes=nbytes)
+            check(got == plan, f"{label} extent {extent}: {got} != plan {plan}")
+            check(batched == st.n_dispatches, f"{label}: {batched} batched launches for "
+                                              f"{st.n_dispatches} dispatches")
+            check(st.tier == "kernel", f"{label}: ran on {st.tier}")
+            if mode == "raid0" and extent == n_blocks:
+                check(copies == 2 * n, f"{label}: {copies} copies, 2 groups x {n} members")
+            if dead is not None:
+                check(st.degraded_reads > 0, f"{label}: no degraded read")
+            launches["filtered_reduce"] += single
+            launches["filtered_reduce_batched"] += batched
+            if 0 < k <= runs:
+                per_run.append((wall, st))
+            if traced:
+                spans = {}
+                for ev in trace.drain():
+                    if ev["type"] == "span" and ev["ts"] >= m0:
+                        spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] * 1e3
+                traced_run = dict(offload_ms=wall * 1e3, trace_ms=spans)
+            last = dict(got, value=int(value), extent_blocks=extent)
+
+        def med(f):
+            return statistics.median(f(w, st) for w, st in per_run) * 1e3
+        rows.append(dict(
+            layout=label, members=n, member_zone_bytes=array.devices[0].zone_bytes,
+            fill_seconds=fill_s, pin_seconds=pin_s,
+            offload_ms_median=med(lambda w, st: w),
+            offload_ms_runs=[w * 1e3 for w, _ in per_run],
+            h2d_ms_median=med(lambda w, st: st.h2d_seconds),
+            stage_ms_median=med(lambda w, st: st.stage_seconds),
+            compute_ms_median=med(lambda w, st: st.compute_seconds),
+            combine_ms_median=med(lambda w, st: st.combine_seconds),
+            read_wait_ms_median=med(lambda w, st: st.read_wait_seconds),
+            exec_ms_median=med(lambda w, st: st.exec_seconds),
+            traced_offload=traced_run, last_offload=last))
+        sched.close()
+        for member in array.devices:
+            csd_mod.unpin_zone_memory(member)
+        del sched, array
+        gc.collect()
+    check(launches == {"filtered_reduce": zf_kernel.filtered_reduce.launches,
+                       "filtered_reduce_batched": zf_kernel.filtered_reduce_batched.launches},
+          "kernels launched outside the counted offloads")
+    emit("array", expected=expected, nvmcsd=csd_count, stripe_blocks=ARRAY_STRIPE,
+         chunk_bytes=ARRAY_STRIPE * PAGE_BYTES, runs=rows, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def phase_batched(torch, tp, zf_kernel, zf_ops, data):
@@ -861,30 +1027,41 @@ def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref):
     x = x.reshape(-1, 1024)
     thr = RAND_MAX // 2
     transform = zf_ref.decode_transform(ops, imms)
-    nbytes = x.numel() * x.element_size() + 4
-    nops = 2 * x.numel()               # one compare and one add per element
-    xb = x.reshape(8, -1, 1024)
+
+    def single(pages):
+        return (lambda: zf_kernel.filtered_reduce(pages, kind="count", ops=ops, imms=imms),
+                lambda: zf_ref.filtered_reduce_ref(pages, "count", transform),
+                lambda: (pages > thr).sum(), pages)
+
+    def batched(pages):
+        return (lambda: zf_kernel.filtered_reduce_batched(pages, kind="count", ops=ops,
+                                                          imms=imms),
+                lambda: zf_ref.filtered_reduce_batched_ref(pages, "count", transform),
+                lambda: (pages > thr).sum(dim=(1, 2)), pages)
+    # the kernels line's rows at their main paths' shapes: the 256 MiB zone
+    # of NvmCsd, and one array dispatch (512 chunks x 64 pages, 128 MiB);
+    # beside them the 8-chunk shape of earlier runs and one 256 KiB chunk
+    # (an array chunk re-served alone)
+    chunks, pages = BATCH_SHAPES[1]
     rows = {
-        "filtered_reduce": (
-            lambda: zf_kernel.filtered_reduce(x, kind="count", ops=ops, imms=imms),
-            lambda: zf_ref.filtered_reduce_ref(x, "count", transform),
-            lambda: (x > thr).sum(), nbytes),
-        "filtered_reduce_batched": (
-            lambda: zf_kernel.filtered_reduce_batched(xb, kind="count", ops=ops, imms=imms),
-            lambda: zf_ref.filtered_reduce_batched_ref(xb, "count", transform),
-            lambda: (xb > thr).sum(dim=(1, 2)), nbytes + 4 * 7),
+        "filtered_reduce": single(x),
+        "filtered_reduce_batched": batched(x[:chunks * pages].reshape(chunks, pages, 1024)),
+        "filtered_reduce_batched_8x8192": batched(x.reshape(8, -1, 1024)),
+        "filtered_reduce_256KiB_chunk": single(x[:ARRAY_STRIPE]),
     }
     out = {}
-    for name, (kernel, plain, library, n_bytes) in rows.items():
+    for name, (kernel, plain, library, pages) in rows.items():
         k, p, lib = measure(torch, kernel), measure(torch, plain, reps=5), measure(torch, library)
-        b_ms, b_by = bound_ms(n_bytes, nops)
+        n_out = pages.shape[0] if pages.dim() == 3 else 1
+        n_bytes = pages.numel() * pages.element_size() + 4 * n_out
+        b_ms, b_by = bound_ms(n_bytes, 2 * pages.numel())   # a compare and an add each
         out[name] = dict(ms=k["ms"], device_ms=k["device_ms"], host_us=k["host_us"],
                          device_kernels=k["device_kernels"],
                          device_launches_per_call=k["device_launches_per_call"],
                          plain_ms=p["ms"], plain_device_ms=p["device_ms"],
                          library_ms=lib["ms"], library_device_ms=lib["device_ms"],
                          bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
-                         share_of_bound=b_ms / k["ms"])
+                         share_of_bound=b_ms / k["ms"], shape=list(pages.shape))
     copy_ms = measure(torch, lambda: x.clone())            # a plain 256 MiB read+write
     out["paged_attention"] = paged_timing(torch, pa_kernel, pa_ref)
     emit("timing", shape=list(data.reshape(-1, 1024).shape), h2d_event_ms=h2d,
@@ -907,6 +1084,7 @@ def main():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.array as array_mod
     from repro_torch.core import NvmCsd
     from repro_torch.core import csd as csd_mod
     from repro_torch.core import programs as tp
@@ -917,6 +1095,7 @@ def main():
     from repro_torch.kernels.paged_attn import ref as pa_ref
     from repro_torch.kernels.zone_filter import ref as zf_ref
     from repro_torch.serve import KVZonePool
+    from repro_torch.telemetry import trace
     from repro_torch.zns import ZonedDevice
 
     t_start = time.perf_counter()
@@ -924,8 +1103,13 @@ def main():
         name, smi_line = phase_device(torch)
         phase_build([zf_kernel, pa_kernel], _build)
         errs = phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref)
-        _, data, launches = phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod, zf_kernel)
+        data, launches, csd_count = phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod,
+                                                  zf_kernel)
+        on_array = phase_array(torch, tp, ZonedDevice, array_mod, csd_mod, trace, zf_kernel,
+                               data, csd_count)
         launches["filtered_reduce_batched"] = phase_batched(torch, tp, zf_kernel, zf_ops, data)
+        for kname, n in on_array.items():
+            launches[kname] += n
         launches["paged_attention"] = phase_serve(torch, KVZonePool, pa_kernel, pa_ref)
         times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref)
     except PhaseFailed as e:

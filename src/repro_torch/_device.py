@@ -12,7 +12,7 @@ import warnings
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "host_to_device", "to_numpy"]
+__all__ = ["resolve_device", "host_tensor", "host_to_device", "to_numpy"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -28,19 +28,23 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """``array`` on ``device``: an alias on the CPU, one blocking host-to-card
-    copy on CUDA (a single DMA when the host memory is page-locked).
+def host_tensor(array: np.ndarray) -> torch.Tensor:
+    """``array`` as a CPU tensor sharing its memory (no copy).
 
     Zone extents arrive as read-only views of the device's backing buffer.
     ``torch.from_numpy`` warns on those because a tensor cannot be made
     read-only; the port only ever reads these tensors (as a copy source or as
     the input of an out-of-place op), so the warning is silenced here, once.
     """
-    array = np.ascontiguousarray(array)
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*not writable.*")
-        t = torch.from_numpy(array)
+        return torch.from_numpy(np.ascontiguousarray(array))
+
+
+def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``array`` on ``device``: an alias on the CPU, one blocking host-to-card
+    copy on CUDA (a single DMA when the host memory is page-locked)."""
+    t = host_tensor(array)
     return t if device.type == "cpu" else t.to(device)
 
 

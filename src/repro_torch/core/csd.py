@@ -30,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch._device import host_to_device, resolve_device
+from repro_torch._device import host_tensor, host_to_device, resolve_device
 
 from repro_torch.core.cache import CompiledProgramCache
 from repro_torch.core.prefetch import RingReader
@@ -46,7 +46,9 @@ from repro_torch.core.vm import (
 from repro_torch.zns.device import ZonedDevice
 
 __all__ = ["NvmCsd", "OffloadStats", "CsdTier", "extent_geometry",
-           "execute_extent", "resolve_tier", "pin_zone_memory", "stage_extent"]
+           "execute_extent", "resolve_tier", "pin_zone_memory",
+           "unpin_zone_memory", "pin_array_memory", "stage_extent",
+           "CopyCounter", "h2d"]
 
 TIERS = ("interp", "jit", "kernel")
 
@@ -66,6 +68,30 @@ def resolve_tier(tier: str, program: Program) -> str:
 # the zone-to-card seam
 # ---------------------------------------------------------------------------
 
+class CopyCounter:
+    """Host-to-card copies made by the offload paths: ``copies`` and
+    ``bytes``. Exact when many threads add at once (several CSDs, the
+    dispatchers of several array schedulers)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.copies = 0
+        self.bytes = 0
+
+    def add(self, nbytes: int) -> None:
+        with self._lock:
+            self.copies += 1
+            self.bytes += int(nbytes)
+
+    def snapshot(self) -> tuple[int, int]:
+        """``(copies, bytes)``, read together."""
+        with self._lock:
+            return self.copies, self.bytes
+
+
+# every host-to-card copy of zone bytes, wherever the offload path makes it
+h2d = CopyCounter()
+
 _pinned: "weakref.WeakKeyDictionary[ZonedDevice, weakref.finalize]" = \
     weakref.WeakKeyDictionary()
 _pin_lock = threading.Lock()
@@ -79,7 +105,8 @@ def pin_zone_memory(device: ZonedDevice) -> None:
     """Page-lock ``device``'s whole backing buffer once (``cudaHostRegister``),
     so that every extent read from it reaches the card in a single DMA with
     no staging copy on the host. Unregistered when the device is collected
-    (the finalizer holds the buffer until then). Idempotent."""
+    (the finalizer holds the buffer until then), or by
+    :func:`unpin_zone_memory`. Idempotent."""
     with _pin_lock:
         if device in _pinned:
             return
@@ -91,26 +118,48 @@ def pin_zone_memory(device: ZonedDevice) -> None:
         _pinned[device] = weakref.finalize(device, _unpin, buf)
 
 
-def stage_extent(device: ZonedDevice, pages: np.ndarray,
+def unpin_zone_memory(device: ZonedDevice) -> None:
+    """Unregister ``device``'s buffer now rather than when it is collected.
+    No copy from it may be in flight. Idempotent."""
+    with _pin_lock:
+        fin = _pinned.pop(device, None)
+    if fin is not None:
+        fin()
+
+
+def pin_array_memory(array) -> None:
+    """Page-lock each member of a striped array once, as :class:`NvmCsd`
+    does for its one device: the array scheduler copies member reads (views
+    of these buffers) straight to the card."""
+    for member in array.devices:
+        pin_zone_memory(member)
+
+
+def stage_extent(device, pages: np.ndarray,
                  torch_device: torch.device) -> tuple[torch.Tensor, float]:
-    """Move a zone extent (a read-only view of ``device``'s buffer) to
-    ``torch_device``: ``(tensor, seconds)``. On CUDA this is the one
-    host-to-card copy of the offload, straight from the page-locked zone
-    memory, counted in ``stage_extent.copies``/``stage_extent.bytes``. On the
-    CPU the tensor aliases the view (no copy, nothing counted)."""
+    """Move a zone extent to ``torch_device``: ``(tensor, seconds)``.
+
+    On CUDA this is one blocking host-to-card copy, counted in :data:`h2d`.
+    The extent of a :class:`ZonedDevice` is a read-only view of its buffer,
+    page-locked here once, so the copy is a single DMA from zone memory.
+    Any other source (a chunk the array scheduler re-read or reconstructed
+    into host memory, ``repro_torch.array.scheduler._ExtentSource``) has no
+    buffer of its own to page-lock: its pages go through a page-locked
+    bounce buffer from PyTorch's caching host allocator, which keeps freed
+    blocks for reuse, so a steady stream of chunks allocates nothing. On
+    the CPU the tensor aliases the view (no copy, nothing counted)."""
     if torch_device.type != "cuda":
         return host_to_device(pages, torch_device), 0.0
-    pin_zone_memory(device)
     t0 = time.perf_counter()
-    out = host_to_device(pages, torch_device)     # blocking: the DMA is done
+    src = host_tensor(pages)
+    if isinstance(device, ZonedDevice):
+        pin_zone_memory(device)
+    else:
+        src = src.pin_memory()                    # the bounce
+    out = src.to(torch_device)                    # blocking: the DMA is done
     seconds = time.perf_counter() - t0
-    stage_extent.copies += 1
-    stage_extent.bytes += pages.nbytes
+    h2d.add(pages.nbytes)
     return out, seconds
-
-
-stage_extent.copies = 0
-stage_extent.bytes = 0
 
 
 def extent_geometry(
@@ -152,8 +201,10 @@ def execute_extent(
 
     The jit and kernel tiers compute on ``torch_device``. The extent reaches
     it with one copy (:func:`stage_extent`: ``read_extent`` hands out a typed
-    view of the page-locked device buffer, and one DMA moves it to the card);
-    that copy is timed inside ``exec_seconds`` and reported as
+    view of the page-locked device buffer, and one DMA moves it to the card;
+    a ``device`` that is not a :class:`ZonedDevice`, such as the array
+    scheduler's in-memory chunk source, goes through a page-locked bounce
+    buffer); that copy is timed inside ``exec_seconds`` and reported as
     ``h2d_seconds``. ``result.compile_seconds`` is non-zero only when this
     call prepared a fresh executable (miss in ``cache``).
     """
@@ -294,7 +345,7 @@ class NvmCsd:
         prefetch_depth: int = 2,
     ):
         self.torch_device = resolve_device(device)
-        if self.torch_device.type == "cuda":
+        if self.torch_device.type == "cuda" and isinstance(zoned, ZonedDevice):
             pin_zone_memory(zoned)
         self.device = zoned
         self.default_tier = default_tier

@@ -371,9 +371,11 @@ def alu_torch(x: torch.Tensor, op: OpCode, imm, *, u32: bool = False
 @dataclass
 class JittedProgram:
     """A program prepared for one tier on one device. ``fn`` maps a tensor
-    on ``device`` to result tensor(s); calling the JittedProgram takes host
-    numpy pages (or a tensor already on ``device``) and returns numpy, as
-    the reference's callers expect."""
+    on ``device`` to result tensor(s). :meth:`launch` runs it and returns
+    those tensors without waiting for the device (the array scheduler's
+    dispatch); :meth:`to_host` brings them to the host as numpy; calling the
+    JittedProgram does both, taking host numpy pages (or a tensor already
+    on ``device``), as the reference's callers expect."""
 
     fn: Callable                     # (pages tensor) -> tensor | (buf, n)
     compile_seconds: float           # the paper's "JIT time" statistic
@@ -382,10 +384,18 @@ class JittedProgram:
     program: Program
     device: torch.device
 
-    def __call__(self, pages) -> object:
-        if isinstance(pages, np.ndarray):
-            pages = host_to_device(pages, self.device)
-        out = self.fn(pages)
+    def launch(self, pages: torch.Tensor):
+        """Enqueue the program over ``pages`` (a tensor on ``device``) on
+        the current stream; returns the result tensor(s) on ``device``."""
+        if pages.device.type != self.device.type:
+            raise ValueError(f"pages on {pages.device}, program prepared "
+                             f"for {self.device}")
+        return self.fn(pages)
+
+    def to_host(self, out) -> object:
+        """The result tensor(s) of :meth:`launch` as numpy, in the types the
+        reference returns (min/max in the stream type, SELECT as
+        ``(buf, n)``). Waits for the current stream."""
         dtype = np.dtype(self.program.input_dtype)
         if isinstance(out, tuple):                  # SELECT / SELECT_REC
             buf, n = out
@@ -393,6 +403,11 @@ class JittedProgram:
         if self.program.terminal.op in (OpCode.RED_MIN, OpCode.RED_MAX):
             return to_numpy(out, dtype)
         return to_numpy(out)
+
+    def __call__(self, pages) -> object:
+        if isinstance(pages, np.ndarray):
+            pages = host_to_device(pages, self.device)
+        return self.to_host(self.launch(pages))
 
 
 def _build_program_runner(program: Program):

@@ -129,7 +129,9 @@ def kernel_program(program: Program, n_pages: int, page_elems: int, *,
 def kernel_program_batched(program: Program, n_chunks: int, n_pages: int,
                            page_elems: int, *, device="cuda") -> JittedProgram:
     """The chunk-batched kernel for ``[n_chunks, n_pages, page_elems]``
-    (the array scheduler's striped fan-out shape)."""
+    (the array scheduler's striped fan-out shape). The scheduler dispatches
+    it with :meth:`~repro_torch.core.vm.JittedProgram.launch`, which
+    returns the ``[n_chunks]`` result on the card without waiting for it."""
     return _kernel_program(program, n_pages, page_elems, device,
                            filtered_reduce_batched)
 

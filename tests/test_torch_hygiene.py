@@ -20,7 +20,7 @@ from repro_torch.zns import ZonedDevice
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = ["repro_torch", "repro_torch.core", "repro_torch.zns",
            "repro_torch.kernels.zone_filter", "repro_torch.kernels.paged_attn",
-           "repro_torch.serve"]
+           "repro_torch.serve", "repro_torch.array", "repro_torch.telemetry"]
 
 
 def test_port_import_leaves_jax_and_repro_out():
