@@ -40,6 +40,23 @@ Phases, one JSON line each; any failed phase exits non-zero:
             them and zone reuse; every attend held against the plain version,
             and two planted faults (a length one short, a last zone dropped)
             that this check must reject
+  pipeline  the training-data pushdown through ZoneDataPipeline on the jit
+            tier: a 4 x 256 MiB corpus of 2,048-token records (granite-8b
+            vocabulary, quality in [0, 100)) filtered at quality >= 50 by
+            NvmCsd, each zone's count and records against numpy's, the first
+            batches of an epoch against numpy's recomputation, the histograms
+            and PipelineStats against the arithmetic; then the same corpus on
+            a raid0 x 4 StripedZoneArray (768 KiB chunks) through
+            OffloadScheduler, whose records must be the same. No zone_filter
+            kernel may launch: these programs project a field, which the
+            kernel tier does not take
+  checkpoint one granite-8b layer's train state (bf16 params, f32 AdamW
+            moments, 2.18 GB on the card) through ZonedCheckpointStore on 24
+            zones of 256 MiB: save, save again (with gc), restore onto the
+            card (every leaf torch.equal), a cold reopen, and a flipped
+            payload byte that the restore must refuse while the older step
+            still restores; then the reference's raid1 power-loss sweep over
+            card tensors, every boundary ok
   timing    kernel, plain-version and library times on the card (CUDA events),
             with the device kernels one call runs
 
@@ -53,6 +70,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -99,6 +117,25 @@ GRANITE_HEADS = 32
 # and in bfloat16 the two float32 results may also round to neighbouring
 # bfloat16 values, one step apart: at most 2**-7 of the value.
 PAGED_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-5, 2**-7)}
+# the pipeline phase's corpus: zones x 256 MiB of records [quality | 2,048
+# tokens | padding to 3 pages], tokens in granite-8b's vocabulary
+PIPE_ZONES = 4
+PIPE_SEQ = 2048
+PIPE_VOCAB = 49152              # src/repro/configs/granite_8b.py
+PIPE_MIN_QUALITY = 50
+PIPE_BATCH = 8
+PIPE_BATCHES_CHECKED = 16
+PIPE_STRIPE = 192               # blocks: 768 KiB chunks, a multiple of the record's 3 pages
+PIPE_MEMBERS = 4
+SEED = 0
+# the checkpoint phase: one granite-8b layer (d_model, heads, kv heads,
+# head_dim, d_ff) with its AdamW moments, on zones of 256 MiB
+CKPT_DIMS = (4096, 32, 8, 128, 14336)
+CKPT_ZONES = 24
+CKPT_ZONE_BYTES = 256 * 1024 * 1024
+# tests/test_faults.py::TestCrashHarness::test_raid1_sweep_never_torn
+SWEEP = dict(num_devices=4, num_zones=6, member_zone_bytes=256 * 1024, stripe_blocks=4,
+             redundancy="raid1")
 
 
 _T0 = time.perf_counter()
@@ -890,6 +927,344 @@ def phase_serve(torch, KVZonePool, pa_kernel, pa_ref):
     return launches
 
 
+# -------------------------------------------------- training data and state
+
+def phase_pipeline(torch, ZonedDevice, array_mod, csd_mod, data_mod, zf_kernel, trace, card):
+    """The training-data pushdown on the card's jit tier.
+
+    Each zone of the corpus goes through ``ZoneDataPipeline._zone_records``
+    (a FIELD/CMP_GE/RED_COUNT offload, then SELECT_REC at exactly that
+    capacity); its count and its records (quality, tokens, zero padding)
+    must equal numpy's filter of the appended arrays, in stream order. Then
+    ``batches`` over every zone, whose first PIPE_BATCHES_CHECKED batches
+    must equal numpy's permutation of the kept records under the same seed,
+    the histograms (RED_HIST over each whole zone) numpy's, and
+    ``PipelineStats`` the sum of each offload's bytes. The same bytes on a
+    raid0 array through ``OffloadScheduler`` must give the same records.
+    Times: host clock around each zone's two offloads, and each offload's
+    ``exec``/``h2d`` (and on the array its stages) from the CSD's history;
+    the last zone of each runs under the span tracer (``trace_ms``: each
+    span's summed ms in its two offloads, by name)."""
+    def traced_zone(pipe, z):
+        m0 = time.monotonic()
+        t = time.perf_counter()
+        with trace.tracing(z == PIPE_ZONES - 1):
+            recs = pipe._zone_records(z)
+        wall = time.perf_counter() - t
+        spans = {}
+        for ev in trace.drain() if z == PIPE_ZONES - 1 else ():
+            if ev["type"] == "span" and ev["ts"] >= m0:
+                spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] * 1e3
+        return recs, wall, spans
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    dev = ZonedDevice(num_zones=PIPE_ZONES, zone_bytes=ZONE_BYTES)
+    store = data_mod.ZoneDataStore(dev, PIPE_SEQ)
+    stride = store.stride
+    per_zone = dev.zone_bytes // (stride * 4)
+    corpus = []
+    for z in range(PIPE_ZONES):
+        tokens = rng.integers(0, PIPE_VOCAB, (per_zone, PIPE_SEQ), dtype=np.int32)
+        quality = rng.integers(0, 100, per_zone, dtype=np.int32)
+        store.append_records(z, tokens, quality)
+        corpus.append((tokens, quality))
+    fill_s = time.perf_counter() - t_phase
+    n_blocks = [dev.zone(z).write_pointer for z in range(PIPE_ZONES)]
+    check(all(store.records_in_zone(z) == per_zone for z in range(PIPE_ZONES)),
+          "records in a zone")
+
+    def expected(z):
+        tokens, quality = corpus[z]
+        keep = quality >= PIPE_MIN_QUALITY
+        recs = np.zeros((int(keep.sum()), stride), np.int32)
+        recs[:, 0] = quality[keep]
+        recs[:, 1:1 + PIPE_SEQ] = tokens[keep]
+        return recs
+
+    zf_kernel.filtered_reduce.launches = 0
+    zf_kernel.filtered_reduce_batched.launches = 0
+    copies0 = csd_mod.h2d.snapshot()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = data_mod.ZoneDataPipeline(store, batch=PIPE_BATCH, min_quality=PIPE_MIN_QUALITY,
+                                     device=DEVICE)
+    zones, kept, want_stats = [], [], dict(bytes_read_device=0, bytes_to_host=0,
+                                           records_seen=0, records_kept=0, offloads=0)
+
+    def account(z, n_kept):
+        want_stats["bytes_read_device"] += 2 * n_blocks[z] * PAGE_BYTES
+        want_stats["bytes_to_host"] += n_kept * stride * 4 + 8
+        want_stats["records_seen"] += per_zone
+        want_stats["records_kept"] += n_kept
+        want_stats["offloads"] += 2
+
+    for z in range(PIPE_ZONES):
+        recs, wall, spans = traced_zone(pipe, z)
+        want = expected(z)
+        check(recs.shape == want.shape, f"zone {z}: kept {recs.shape[0]}, numpy {want.shape[0]}")
+        check(np.array_equal(recs, want), f"zone {z}: selected records differ from numpy's")
+        count_st, select_st = pipe.csd.history[-2:]
+        check(count_st.tier == select_st.tier == "jit", f"zone {z}: ran on {select_st.tier}")
+        account(z, want.shape[0])
+        kept.append(want.shape[0])
+        zones.append(dict(zone_ms=wall * 1e3, kept=want.shape[0],
+                          count_exec_ms=count_st.exec_seconds * 1e3,
+                          count_h2d_ms=count_st.h2d_seconds * 1e3,
+                          select_exec_ms=select_st.exec_seconds * 1e3,
+                          select_h2d_ms=select_st.h2d_seconds * 1e3,
+                          select_bytes_returned=select_st.bytes_returned,
+                          trace_ms=spans))
+    peak_single = torch.cuda.max_memory_allocated()
+
+    # a select's result copy alone, median of 3: into new pageable memory,
+    # as the jit tier's to_host takes it, and into a page-locked buffer
+    def copy_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+    result = torch.zeros((kept[0], stride), dtype=torch.int32, device=DEVICE)
+    pinned = torch.empty(result.shape, dtype=result.dtype, pin_memory=True)
+    copy_back = dict(bytes=result.numel() * 4, pageable_ms=copy_ms(lambda: result.cpu()),
+                     page_locked_ms=copy_ms(lambda: pinned.copy_(result)))
+    del result, pinned
+
+    # one epoch's first batches against numpy's permutation of the kept records
+    t = time.perf_counter()
+    batches = pipe.batches(list(range(PIPE_ZONES)), epochs=1, seed=SEED)
+    got = [next(batches) for _ in range(PIPE_BATCHES_CHECKED)]
+    first_batches_s = time.perf_counter() - t
+    batches.close()
+    for z in range(PIPE_ZONES):
+        account(z, kept[z])
+    pool = np.concatenate([expected(z)[:, 1:1 + PIPE_SEQ] for z in range(PIPE_ZONES)])
+    order = np.random.default_rng(SEED).permutation(pool.shape[0])
+    for i, b in enumerate(got):
+        rows = pool[order[i * PIPE_BATCH:(i + 1) * PIPE_BATCH]]
+        check(b["tokens"].dtype == torch.int32 and b["tokens"].device.type == "cpu",
+              f"batch {i}: {b['tokens'].dtype} on {b['tokens'].device}")
+        check(np.array_equal(b["tokens"].numpy(), rows[:, :-1])
+              and np.array_equal(b["labels"].numpy(), rows[:, 1:]),
+              f"batch {i} differs from numpy's recomputation")
+    del pool
+
+    hist_ms = []
+    for z in range(PIPE_ZONES):
+        t = time.perf_counter()
+        hist = pipe.histogram(z, bins=64)
+        hist_ms.append((time.perf_counter() - t) * 1e3)
+        # the reference's bin of each distinct value (all are small and
+        # non-negative here), weighted by how often it occurs in the zone
+        tokens, quality = corpus[z]
+        lo, hi, bins = 0, 2**31 - 1, 64
+        counts = np.bincount(np.concatenate([tokens.reshape(-1), quality]))
+        counts[0] += per_zone * (stride - 1 - PIPE_SEQ)        # the zero padding
+        vals = np.arange(counts.size, dtype=np.float64)
+        idx = np.clip(np.floor((vals - lo) * bins / (hi - lo)), 0, bins - 1).astype(np.int64)
+        inside = (vals >= lo) & (vals < hi)
+        want = np.bincount(idx[inside], weights=counts[inside], minlength=bins).astype(np.int64)
+        check(np.array_equal(hist, want), f"zone {z}: histogram differs from numpy's")
+    stats = {k: getattr(pipe.stats, k) for k in want_stats}
+    check(stats == want_stats, f"PipelineStats {stats} != arithmetic {want_stats}")
+    check(pipe.stats.movement_saved == want_stats["bytes_read_device"]
+          - want_stats["bytes_to_host"], "movement_saved")
+    copies = tuple(a - b for a, b in zip(csd_mod.h2d.snapshot(), copies0))
+    check(copies[0] == 2 * 2 * PIPE_ZONES + PIPE_ZONES,
+          f"{copies[0]} host-to-card copies for {5 * PIPE_ZONES} offloads")
+
+    # the same bytes striped: raid0 x PIPE_MEMBERS through OffloadScheduler
+    t = time.perf_counter()
+    stripes = -(-ZONE_BYTES // (PIPE_STRIPE * PAGE_BYTES * PIPE_MEMBERS))
+    members = [ZonedDevice(num_zones=PIPE_ZONES, zone_bytes=stripes * PIPE_STRIPE * PAGE_BYTES)
+               for _ in range(PIPE_MEMBERS)]
+    array = array_mod.StripedZoneArray(members, stripe_blocks=PIPE_STRIPE)
+    for z in range(PIPE_ZONES):
+        array.zone_append(z, dev.read_blocks_view(z, 0, n_blocks[z]))
+    array_fill_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    striped = data_mod.ZoneDataPipeline(data_mod.ZoneDataStore(array, PIPE_SEQ),
+                                        batch=PIPE_BATCH, min_quality=PIPE_MIN_QUALITY,
+                                        device=DEVICE)
+    check(isinstance(striped.csd, array_mod.OffloadScheduler), "striped pushdown scheduler")
+    striped_zones = []
+    for z in range(PIPE_ZONES):
+        recs, wall, spans = traced_zone(striped, z)
+        check(np.array_equal(recs, expected(z)), f"striped zone {z}: records differ")
+        count_st, select_st = striped.csd.history[-2:]
+        check(select_st.tier == "jit", f"striped zone {z}: ran on {select_st.tier}")
+        striped_zones.append(dict(
+            zone_ms=wall * 1e3, n_chunks=select_st.n_chunks,
+            batched_chunks=select_st.batched_chunks, n_dispatches=select_st.n_dispatches,
+            count_exec_ms=count_st.exec_seconds * 1e3, count_h2d_ms=count_st.h2d_seconds * 1e3,
+            select_exec_ms=select_st.exec_seconds * 1e3,
+            select_h2d_ms=select_st.h2d_seconds * 1e3,
+            select_stage_ms=select_st.stage_seconds * 1e3,
+            select_compute_ms=select_st.compute_seconds * 1e3,
+            select_combine_ms=select_st.combine_seconds * 1e3,
+            select_read_wait_ms=select_st.read_wait_seconds * 1e3, trace_ms=spans))
+    peak_striped = torch.cuda.max_memory_allocated()
+    striped.csd.close()
+    launches = (zf_kernel.filtered_reduce.launches, zf_kernel.filtered_reduce_batched.launches)
+    check(launches == (0, 0), f"zone_filter kernels launched {launches} times on the jit tier")
+    for member in (dev, *members):
+        csd_mod.unpin_zone_memory(member)
+
+    def med(rows, key):
+        return statistics.median(r[key] for r in rows)
+    seen_bytes = sum(n_blocks) * PAGE_BYTES
+    zone_s = sum(r["zone_ms"] for r in zones) / 1e3
+    st = pipe.stats
+    emit("pipeline", card=card, zones=PIPE_ZONES, zone_bytes=ZONE_BYTES, seq_len=PIPE_SEQ, stride=stride,
+         records_per_zone=per_zone, tokens=PIPE_ZONES * per_zone * PIPE_SEQ, kept=kept,
+         fill_seconds=fill_s, per_zone=zones,
+         median_ms={k: med(zones, k) for k in ("zone_ms", "count_exec_ms", "count_h2d_ms",
+                                                 "select_exec_ms", "select_h2d_ms")},
+         records_per_s=PIPE_ZONES * per_zone / zone_s, read_gb_per_s=2 * seen_bytes / zone_s / 1e9,
+         survivors_bytes_to_host=sum(kept) * stride * 4, select_copy_back=copy_back,
+         first_batches_seconds=first_batches_s, histogram_ms=hist_ms,
+         stats=dict(stats, movement_saved=st.movement_saved), h2d_copies=copies[0],
+         h2d_bytes=copies[1], max_memory_allocated=peak_single,
+         striped=dict(members=PIPE_MEMBERS, stripe_blocks=PIPE_STRIPE, fill_seconds=array_fill_s,
+                      per_zone=striped_zones,
+                      median_ms={k: med(striped_zones, k) for k in (
+                          "zone_ms", "count_exec_ms", "count_h2d_ms", "select_exec_ms",
+                          "select_h2d_ms")},
+                      max_memory_allocated=peak_striped),
+         kernel_launches=list(launches), seconds=time.perf_counter() - t_phase)
+    del corpus, dev, members, array, pipe, striped
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def granite_layer_state(torch, g):
+    """One granite-8b layer's train state on the card, shaped as the
+    reference's ``train_state_specs`` (src/repro/models): bf16 params, f32
+    AdamW moments of the same tree, an int32 step."""
+    d, H, KV, hd, f = CKPT_DIMS
+    shapes = {"attn": {"wq": (d, H, hd), "wk": (d, KV, hd), "wv": (d, KV, hd),
+                       "wo": (H, hd, d)},
+              "ln1": {"scale": (d,)}, "ln2": {"scale": (d,)},
+              "mlp": {"gate": (d, f), "up": (d, f), "down": (f, d)}}
+
+    def tree(make):
+        return {k: {n: make(shape) for n, shape in v.items()} for k, v in shapes.items()}
+    return {
+        "params": tree(lambda s: (torch.randn(s, generator=g, device=DEVICE) * 0.02)
+                       .to(torch.bfloat16)),
+        "m": tree(lambda s: torch.randn(s, generator=g, device=DEVICE) * 1e-3),
+        "v": tree(lambda s: torch.rand(s, generator=g, device=DEVICE) * 1e-6),
+        "step": torch.tensor(1, dtype=torch.int32, device=DEVICE),
+    }
+
+
+def phase_checkpoint(torch, ZonedDevice, train_mod, tree_mod, crash_mod, card):
+    """Training state on zones, restored onto the card.
+
+    Save step 1, perturb the moments (new tensors) and save step 2 (``save``
+    runs ``gc``), restore the newest onto the card and hold every leaf to
+    ``torch.equal`` on the card; a second store over the same device must
+    recover step 2 cold. After the counted window, one byte of a step-2
+    payload zone is flipped: that restore must raise CheckpointError and
+    step 1 must still restore. Then the reference's raid1 power-loss sweep
+    over card tensors. Times: host clock around each save and restore, split
+    by the store's phase histograms."""
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    state1 = granite_layer_state(torch, g)
+    state2 = dict(state1, step=state1["step"] + 1,
+                  m={k: {n: t + torch.randn(t.shape, generator=g, device=DEVICE) * 1e-4
+                         for n, t in v.items()} for k, v in state1["m"].items()},
+                  v={k: {n: t * 0.999 for n, t in v.items()} for k, v in state1["v"].items()})
+    torch.cuda.synchronize()
+    leaves1 = tree_mod.leaves(state1)
+    payload = sum(t.numel() * t.element_size() for t in leaves1)
+    n_params = sum(t.numel() for t in tree_mod.leaves(state1["params"]))
+    dev = ZonedDevice(num_zones=CKPT_ZONES, zone_bytes=CKPT_ZONE_BYTES)
+    store = train_mod.ZonedCheckpointStore(device=dev, keep=2, torch_device=DEVICE)
+    phases = ("save", "to_host", "save_crc", "restore", "restore_crc", "materialize",
+              "to_device")
+
+    def timed(fn):
+        before = store.metrics.snapshot()
+        t = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t
+        after = store.metrics.snapshot()
+        split = {p: after.get(f"{p}_seconds.sum", 0.0) - before.get(f"{p}_seconds.sum", 0.0)
+                 for p in phases}
+        if split["save"]:       # the appends: the save ticket's life after the CRC
+            split["appends"] = split["save"] - split["to_host"] - split["save_crc"]
+        return out, dict(seconds=wall, gb_per_s=payload / wall / 1e9, **{
+            f"{p}_seconds": v for p, v in split.items() if v})
+
+    def same_on_card(got, want, label):
+        g_leaves, w_leaves = tree_mod.leaves(got), tree_mod.leaves(want)
+        check(str(tree_mod.flatten(got)[1]) == str(tree_mod.flatten(want)[1]),
+              f"{label}: tree structure")
+        for i, (a, b) in enumerate(zip(g_leaves, w_leaves)):
+            check(a.device.type == "cuda", f"{label}: leaf {i} on {a.device}")
+            check(a.dtype == b.dtype and torch.equal(a, b), f"{label}: leaf {i} differs")
+
+    _, save1 = timed(lambda: store.save(1, state1))
+    d2h = store.d2h.snapshot()
+    check(d2h == (len(leaves1), payload), f"save 1 copied {d2h} off the card")
+    manifest2, save2 = timed(lambda: store.save(2, state2))
+    save2["gc_resets"] = dev.stats["zone_resets"]
+    zones_used = sum(1 for z in dev.zones[1:] if z.write_pointer)
+    got, restore2 = timed(lambda: store.restore(like=state1))
+    same_on_card(got, state2, "restore of step 2")
+    check(store.h2d.snapshot() == (len(leaves1), payload), "restore's host-to-card copies")
+    del got
+    reopened = train_mod.ZonedCheckpointStore(device=dev, keep=2, torch_device=DEVICE)
+    check(reopened.steps() == [1, 2], f"reopen recovered steps {reopened.steps()}")
+    store = reopened
+    got, reopen_restore = timed(lambda: store.restore(like=state1))
+    same_on_card(got, state2, "restore after reopen")
+    del got
+
+    # the planted fault, after the counted window: a flipped payload byte
+    entry = next(e for e in manifest2["entries"] if e["bytes"] > PAGE_BYTES)
+    dev._buf[entry["zone"] * dev.zone_bytes + entry["block"] * PAGE_BYTES + 100] ^= 0xFF
+    try:
+        store.restore(step=2, like=state1)
+        refused = False
+    except train_mod.CheckpointError:
+        refused = True
+    check(refused, "a flipped payload byte restored without CheckpointError")
+    got, restore1 = timed(lambda: store.restore(step=1, like=state1))
+    same_on_card(got, state1, "restore of step 1 after the fault")
+    del got, store, reopened
+    dev_bytes = dev.zone_bytes * dev.num_zones
+    del dev
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as tmp:
+        h = crash_mod.PowerLossHarness(tmp, torch_device=DEVICE, **SWEEP)
+        steps = [(s, {"w": torch.arange(300, dtype=torch.float32, device=DEVICE) + s,
+                      "b": torch.full((17,), s, dtype=torch.int32, device=DEVICE)})
+                 for s in (1, 2)]
+        outcomes = h.run(steps)
+    sweep = dict(h.summary(), seconds=time.perf_counter() - t)
+    check(sweep["all_ok"] and all(o.ok for o in outcomes), "power-loss sweep")
+    check(outcomes[-1].recovered_step == 2 and outcomes[0].refused,
+          "sweep ends: refusal at boundary 0, step 2 at the last")
+    emit("checkpoint", card=card, leaves=len(leaves1), parameters=n_params, payload_bytes=payload,
+         zones=CKPT_ZONES, zone_bytes=CKPT_ZONE_BYTES, zoned_bytes=dev_bytes,
+         payload_zones_used=zones_used, save_step1=save1, save_step2=save2,
+         restore_step2=restore2, restore_after_reopen=reopen_restore,
+         restore_step1_after_fault=restore1, planted_fault_refused=refused,
+         power_loss_sweep=sweep, seconds=time.perf_counter() - t_phase)
+    del state1, state2, leaves1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def profiled_ms(torch, fn, reps=10):
     """(device ms per call, {kernel name: its device ms per call}, device
     launches per call) from torch.profiler: the summed device time of what
@@ -1085,6 +1460,9 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.array as array_mod
+    import repro_torch.data as data_mod
+    import repro_torch.faults.crash as crash_mod
+    import repro_torch.train as train_mod
     from repro_torch.core import NvmCsd
     from repro_torch.core import csd as csd_mod
     from repro_torch.core import programs as tp
@@ -1096,6 +1474,7 @@ def main():
     from repro_torch.kernels.zone_filter import ref as zf_ref
     from repro_torch.serve import KVZonePool
     from repro_torch.telemetry import trace
+    from repro_torch.train import _tree as tree_mod
     from repro_torch.zns import ZonedDevice
 
     t_start = time.perf_counter()
@@ -1111,6 +1490,9 @@ def main():
         for kname, n in on_array.items():
             launches[kname] += n
         launches["paged_attention"] = phase_serve(torch, KVZonePool, pa_kernel, pa_ref)
+        phase_pipeline(torch, ZonedDevice, array_mod, csd_mod, data_mod, zf_kernel, trace,
+                       smi_line)
+        phase_checkpoint(torch, ZonedDevice, train_mod, tree_mod, crash_mod, smi_line)
         times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref)
     except PhaseFailed as e:
         emit("failed", error=str(e))

@@ -383,6 +383,7 @@ class JittedProgram:
     page_elems: int
     program: Program
     device: torch.device
+    batched: bool = False            # a leading chunk axis on input and output
 
     def launch(self, pages: torch.Tensor):
         """Enqueue the program over ``pages`` (a tensor on ``device``) on
@@ -399,7 +400,15 @@ class JittedProgram:
         dtype = np.dtype(self.program.input_dtype)
         if isinstance(out, tuple):                  # SELECT / SELECT_REC
             buf, n = out
-            return to_numpy(buf, dtype), to_numpy(n)
+            buf = to_numpy(buf, dtype)
+            cap = self.program.select_capacity
+            if not self.batched and buf.shape[0] < cap:
+                # the reference returns `cap` slots; the ones no element can
+                # fill are zeros, added here rather than copied from the card
+                full = np.zeros((cap, *buf.shape[1:]), dtype)
+                full[: buf.shape[0]] = buf
+                buf = full
+            return buf, to_numpy(n)
         if self.program.terminal.op in (OpCode.RED_MIN, OpCode.RED_MAX):
             return to_numpy(out, dtype)
         return to_numpy(out)
@@ -463,19 +472,25 @@ def _build_program_runner(program: Program):
             counts = torch.bincount(idx[mask & in_range], minlength=B * bins)
             return counts.reshape(B, bins)
         if term.op in (OpCode.SELECT, OpCode.SELECT_REC):
-            # first `cap` matches in stream order; overflow lands in the
-            # scratch slot [cap]; the count reports every match
-            pos = torch.cumsum(mask, dim=1) - 1
-            slot = torch.where(mask & (pos < cap), pos, cap)
+            # first `cap` matches in stream order, zeros after them; the
+            # count reports every match. A row holds at most x.shape[1]
+            # matches, so its buffer has min(cap, x.shape[1]) slots (an
+            # array chunk's row would otherwise be sized by the whole
+            # zone's capacity). Slot j gathers the element where the
+            # running match count first reaches j + 1: each slot is read
+            # and written once, with no write conflicts and no host sync
+            rows = min(cap, x.shape[1])
+            seen = torch.cumsum(mask, dim=1)
+            nth = torch.arange(1, rows + 1, device=x.device).expand(B, rows).contiguous()
+            src = torch.searchsorted(seen, nth).clamp_(max=x.shape[1] - 1)
+            empty = nth > seen[:, -1:]
             if term.op == OpCode.SELECT:
-                buf = torch.zeros((B, cap + 1), dtype=x.dtype, device=x.device)
-                buf.scatter_(1, slot, x)
+                buf = torch.gather(x, 1, src).masked_fill_(empty, 0)
             else:
                 stride = records.shape[2]
-                buf = torch.zeros((B, cap + 1, stride), dtype=records.dtype,
-                                  device=x.device)
-                buf.scatter_(1, slot[:, :, None].expand(-1, -1, stride), records)
-            return buf[:, :cap], mask.sum(dim=1, dtype=torch.int64)
+                buf = torch.gather(records, 1, src[:, :, None].expand(-1, -1, stride))
+                buf.masked_fill_(empty[:, :, None], 0)
+            return buf, seen[:, -1]
         raise AssertionError(term)
 
     return run
@@ -517,4 +532,4 @@ def jit_program_batched(
     t0 = time.perf_counter()
     run = _build_program_runner(program)
     return JittedProgram(run, time.perf_counter() - t0, n_pages, page_elems,
-                         program, device)
+                         program, device, batched=True)

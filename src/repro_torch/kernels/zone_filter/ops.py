@@ -113,7 +113,8 @@ def _kernel_program(program: Program, n_pages: int, page_elems: int,
     def fn(pages: torch.Tensor) -> torch.Tensor:
         return reduce(pages, kind=kind, ops=ops, imms=imms)
     return JittedProgram(fn, time.perf_counter() - t0, n_pages, page_elems,
-                         program, device)
+                         program, device,
+                         batched=reduce is filtered_reduce_batched)
 
 
 def kernel_program(program: Program, n_pages: int, page_elems: int, *,

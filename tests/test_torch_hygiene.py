@@ -20,7 +20,8 @@ from repro_torch.zns import ZonedDevice
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = ["repro_torch", "repro_torch.core", "repro_torch.zns",
            "repro_torch.kernels.zone_filter", "repro_torch.kernels.paged_attn",
-           "repro_torch.serve", "repro_torch.array", "repro_torch.telemetry"]
+           "repro_torch.serve", "repro_torch.array", "repro_torch.telemetry",
+           "repro_torch.data", "repro_torch.train", "repro_torch.faults.crash"]
 
 
 def test_port_import_leaves_jax_and_repro_out():
@@ -84,3 +85,26 @@ def test_program_entry_points_default_to_cuda(monkeypatch):
     for build in (jit_program, kernel_program):
         with pytest.raises(RuntimeError, match="cuda"):
             build(prog, 4, 1024)
+
+
+def test_pipeline_and_checkpoint_store_raise_when_cuda_is_absent(monkeypatch, tmp_path):
+    from repro_torch.data import ZoneDataPipeline, ZoneDataStore
+    from repro_torch.train import ZonedCheckpointStore, tree_from_numpy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = ZoneDataStore(ZonedDevice(num_zones=1, zone_bytes=64 * 1024,
+                                      block_bytes=4096), seq_len=31)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ZoneDataPipeline(store, batch=2)
+    assert ZoneDataPipeline(store, batch=2, device="cpu").csd.torch_device.type == "cpu"
+    dev = ZonedDevice(num_zones=2, zone_bytes=64 * 1024, block_bytes=4096)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ZonedCheckpointStore(device=dev)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ZonedCheckpointStore.striped(tmp_path, num_devices=2, num_zones=2,
+                                     member_zone_bytes=64 * 1024, stripe_blocks=4)
+    cpu_store = ZonedCheckpointStore(device=dev, torch_device="cpu")
+    cpu_store.save(1, {"w": torch.zeros(4)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cpu_store.restore(like={"w": torch.zeros(4)}, torch_device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tree_from_numpy({"w": np.zeros(4)})

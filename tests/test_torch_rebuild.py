@@ -1,27 +1,25 @@
-"""``tests/test_rebuild.py`` held against the port, but for its checkpoint case.
+"""``tests/test_rebuild.py`` held against the port.
 
-The reference's rebuild-protocol, ArrayManager, fault-mid-rebuild and scrub
-tests run here as they are written, except that every ``from repro.``
-import names ``repro_torch.`` and the port's ``OffloadScheduler`` computes
-on ``device="cpu"`` (the plain PyTorch paths). The case that restores a
-checkpoint mid-rebuild waits for the port of ``repro.train.checkpoint``.
+The reference's rebuild-protocol, ArrayManager, fault-mid-rebuild, scrub
+and mid-rebuild checkpoint tests run here as they are written, except that
+every ``from repro.`` import names ``repro_torch.``, the port's
+``OffloadScheduler`` computes on ``device="cpu"`` (the plain PyTorch paths)
+and the port's checkpoint store restores onto ``torch_device="cpu"``.
 One case holds its rebuild until it has checked what it checks mid-rebuild
 (see ``_promotion_is_idempotent``).
 """
 import functools
 import threading
+import types
 from pathlib import Path
 
 _REFERENCE = Path(__file__).with_name("test_rebuild.py")
-_CHECKPOINT_IMPORT = "from repro.train.checkpoint import ZonedCheckpointStore\n"
-_SOURCE = _REFERENCE.read_text()
-assert _CHECKPOINT_IMPORT in _SOURCE
-exec(compile(_SOURCE.replace(_CHECKPOINT_IMPORT, "\n")   # keeps the line numbers
-             .replace("from repro.", "from repro_torch."),
+exec(compile(_REFERENCE.read_text().replace("from repro.", "from repro_torch."),
              str(_REFERENCE), "exec"))
 
 OffloadScheduler = functools.partial(OffloadScheduler, device="cpu")  # noqa: F821
-del TestFaultsMidRebuild.test_checkpoint_restores_mid_rebuild  # noqa: F821
+ZonedCheckpointStore = types.SimpleNamespace(striped=functools.partial(  # noqa: F821
+    ZonedCheckpointStore.striped, torch_device="cpu"))  # noqa: F821
 
 
 def _promotion_is_idempotent(self, monkeypatch):
