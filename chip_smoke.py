@@ -57,6 +57,18 @@ Phases, one JSON line each; any failed phase exits non-zero:
             payload byte that the restore must refuse while the older step
             still restores; then the reference's raid1 power-loss sweep over
             card tensors, every boundary ok
+  model     the model serve stack: granite-8b at its published widths and
+            depth (36 layers, bf16, 8.26 B random parameters) serving 8
+            prompts of 1,024 tokens with 32 greedy tokens each through
+            ServeModel.generate: prefill and decode-step times (CUDA events)
+            beside their bounds, tokens/s, peak memory; every step's logits
+            against a teacher-forced forward within MODEL_LOGIT_LIMIT, and a
+            planted late decode that check must reject. Then float32 at
+            published widths, depth cut to one superblock, for every
+            architecture of src/repro/configs: decode against forward at
+            2e-3 where the reference's tests run it, granite's prefill then
+            decode at 5e-3 and its card forward against the CPU's at 2e-3,
+            shapes and finite values elsewhere. No kernel of the port runs
   timing    kernel, plain-version and library times on the card (CUDA events),
             with the device kernels one call runs
 
@@ -72,6 +84,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -133,6 +146,54 @@ SEED = 0
 CKPT_DIMS = (4096, 32, 8, 128, 14336)
 CKPT_ZONES = 24
 CKPT_ZONE_BYTES = 256 * 1024 * 1024
+# the model phase: granite-8b (src/repro/configs/granite_8b.py) at its
+# published widths and depth in bf16, random weights from init_params(seed
+# 0), served by ServeModel.generate: 8 prompts of 1,024 tokens, 32 new
+# tokens each (the first from the prefill, then 31 decode steps)
+MODEL_ARCH = "granite-8b"
+MODEL_BATCH, MODEL_PROMPT, MODEL_NEW = 8, 1024, 32
+MODEL_FAULT_NEW = 4             # tokens of the planted late-decode run
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+# |decode logits - teacher-forced forward logits|, any logit, at the serve
+# shape cut to one layer (held_check). Both paths run the same bf16 layer
+# and round in different places (other GEMM shapes; one softmax against two
+# attention chunks), each at most one bf16 step apart. The logits are bf16
+# below 8 in magnitude (checked), where a step is 2^-5, so the logit's own
+# rounding in each path gives up to 2 steps and the hidden state's
+# differences, at most one step in some of its 4,096 elements, add well
+# under one more through the final norm and head: 4 steps, 0.125
+# (PERF.md, the model cell). At 36 layers the reference's initialisation
+# makes the function ill-conditioned and the comparison is reported, not held.
+MODEL_LOGIT_LIMIT = 0.125
+CONDITIONING_DEPTHS = (2, 4)    # layers at which decode vs forward is also reported
+# the exact checks: float32, published widths, depth cut to one superblock
+EXACT_T = 12
+EXACT_LAYERS = {
+    "granite-8b": {"num_layers": 2},
+    "h2o-danube-1.8b": {"num_layers": 1},           # sliding window
+    "starcoder2-3b": {"num_layers": 1},             # LayerNorm, GELU, bias
+    "command-r-plus-104b": {"num_layers": 1},       # parallel block, tied head
+    "deepseek-moe-16b": {"num_layers": 2},          # dense layer 0, then MoE
+    "grok-1-314b": {"num_layers": 1},               # MoE, softcap
+    "mamba2-780m": {"num_layers": 1},
+    "recurrentgemma-9b": {"num_layers": 3},         # rglru, rglru, local_attn
+    "llama-3.2-vision-11b": {"num_layers": 5},      # cross layer included
+    "seamless-m4t-large-v2": {"num_layers": 1, "encoder_layers": 1},
+}
+# the card's float32 forward against the CPU's, the same weights (granite-8b,
+# 2 layers): the bound the reference's tests hold two evaluation orders of
+# one float32 model to (decode against forward). cuBLAS and the CPU's BLAS
+# sum in other orders, and the reference's initialisation makes attention
+# hard (layer-0 logits of std about 255, the two largest of a query as
+# close as 0.019), so the two read 1.2e-4 apart at one layer and 2.1e-3 at
+# two on an H100 (PERF.md, the model cell)
+CARD_VS_CPU_TOL = 2e-3
+# tests/test_arch_smoke.py: the archs whose decode the reference holds to
+# its forward at 2e-3
+DECODE_CONSISTENCY_ARCHS = (
+    "h2o-danube-1.8b", "starcoder2-3b", "granite-8b", "command-r-plus-104b",
+    "grok-1-314b", "deepseek-moe-16b", "mamba2-780m", "recurrentgemma-9b",
+)
 # tests/test_faults.py::TestCrashHarness::test_raid1_sweep_never_torn
 SWEEP = dict(num_devices=4, num_zones=6, member_zone_bytes=256 * 1024, stripe_blocks=4,
              redundancy="raid1")
@@ -1265,6 +1326,367 @@ def phase_checkpoint(torch, ZonedDevice, train_mod, tree_mod, crash_mod, card):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ model serving
+
+def timed_serve(torch, ServeModel):
+    """``ServeModel`` with CUDA events (device time) and the host clock
+    (enqueue time) around each prefill and decode step of ``generate``."""
+    class TimedServe(ServeModel):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.events = {"prefill": [], "decode": []}
+
+        def _timed(self, kind, fn, *args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.events[kind].append((start, end, (time.perf_counter() - t) * 1e3))
+            return out
+
+        def prefill(self, batch):
+            return self._timed("prefill", super().prefill, batch)
+
+        def decode(self, cache, tokens, pos):
+            return self._timed("decode", super().decode, cache, tokens, pos)
+
+        def times(self, kind):
+            """([device ms], [host enqueue ms]) of each call since the last reset."""
+            torch.cuda.synchronize()
+            evs = self.events[kind]
+            return [s.elapsed_time(e) for s, e, _ in evs], [h for _, _, h in evs]
+    return TimedServe
+
+
+def logit_check(torch, got, want):
+    """(max |got - want|, share of MODEL_LOGIT_LIMIT, both finite)."""
+    err = float((got.float() - want.float()).abs().max())
+    finite = bool(torch.isfinite(got.float()).all() and torch.isfinite(want.float()).all())
+    return err, err / MODEL_LOGIT_LIMIT, finite
+
+
+def teacher_forced(torch, models, cfg, params, prompt, tokens):
+    """The forward's logits at the positions ``generate`` produced its
+    tokens from: prompt + all generated tokens but the last."""
+    full = torch.cat([prompt, tokens[:, :-1]], dim=1)
+    with torch.no_grad():
+        return models.forward(cfg, params, {"tokens": full})[0][:, prompt.shape[1] - 1:], full
+
+
+def granite_serve(torch, cfgs, models, api, serve_mod, tree_mod):
+    """granite-8b at its published widths and depth, bf16, random weights
+    from ``init_params(seed 0)``: MODEL_BATCH prompts of MODEL_PROMPT tokens
+    served by ``ServeModel.generate`` (prefill, then greedy decode) with
+    MODEL_NEW new tokens each. Timed: the prefill and each decode step
+    (CUDA events, host clock beside), the whole call (host clock). After
+    the timed window: the same call again must give the same tokens and
+    logits bit for bit, and every logit is finite. The teacher-forced
+    forward over prompt + generated tokens is compared and reported, not
+    held: at this depth the reference's initialisation makes the function
+    ill-conditioned (attention logits of std about 255, so attention is
+    hard and one rounding flips it), and the same forward with attn_chunk
+    halved, the same function summed in another order, is reported beside
+    it. ``held_check`` holds the comparison at one layer."""
+    cfg = cfgs.get_config(MODEL_ARCH)
+    B, L, N = MODEL_BATCH, MODEL_PROMPT, MODEL_NEW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = models.init_params(models.param_specs(cfg), SEED, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    leaves = tree_mod.leaves(params)
+    n_params = sum(x.numel() for x in leaves)
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    tok = params["embed"]["tok"]
+    tok_params, tok_bytes = tok.numel(), tok.numel() * tok.element_size()
+    del leaves, tok
+    TimedServe = timed_serve(torch, serve_mod.ServeModel)
+    model = TimedServe(cfg, params, device=DEVICE)
+    del params
+    batch = api.make_batch(cfg, B, L, seed=SEED, device=DEVICE)
+    model.generate({"tokens": batch["tokens"][:, :64]}, 2)      # warm-up
+    model.events = {"prefill": [], "decode": []}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tokens, logits = model.generate(batch, N)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    (prefill_ms,), (prefill_host_ms,) = model.times("prefill")
+    step_ms, step_host_ms = model.times("decode")
+    check(len(step_ms) == N - 1, f"{len(step_ms)} decode steps for {N} tokens")
+    check(tuple(tokens.shape) == (B, N) and tokens.dtype == torch.int32
+          and tokens.device.type == torch.device(DEVICE).type,
+          f"tokens {tuple(tokens.shape)} {tokens.dtype} on {tokens.device}")
+    check(tuple(logits.shape) == (B, N, cfg.vocab_size), f"logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "a token outside the vocabulary")
+    again_tokens, again_logits = model.generate(batch, N)
+    same = bool(torch.equal(again_tokens, tokens) and torch.equal(again_logits, logits))
+    check(same, "a second generate of the same prompts differs")
+    del again_tokens, again_logits
+    ref, full = teacher_forced(torch, models, cfg, model.tree(), batch["tokens"], tokens)
+    with torch.no_grad():
+        half = models.forward(cfg.replace(attn_chunk=cfg.attn_chunk // 2), model.tree(),
+                              {"tokens": full})[0][:, L - 1:]
+
+    def spread(a, b):
+        d = (a.float() - b.float()).abs()
+        return dict(max_abs=float(d.max()), rms=float(d.pow(2).mean().sqrt()),
+                    argmax_agrees=float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+    conditioning = dict(logit_rms=float(ref.float().pow(2).mean().sqrt()),
+                        decode_vs_forward=spread(logits, ref),
+                        forward_vs_forward_half_chunk=spread(half, ref),
+                        prefill_vs_forward_max_abs=float(
+                            (logits[:, 0].float() - ref[:, 0].float()).abs().max()))
+    del ref, half, full
+
+    # where the time goes: one prefill and one decode step under the
+    # profiler (device time by kernel; the rest of the event time is idle)
+    def top(names, n=8):
+        return dict(sorted(names.items(), key=lambda kv: -kv[1])[:n])
+    cache = models.init_params(models.cache_specs(cfg, B, L + N), 0, DEVICE)
+    step_tokens = tokens[:, :1].contiguous()
+    prefill_dev, prefill_kernels, prefill_launches = profiled_ms(
+        torch, lambda: model.prefill(batch), reps=1)
+    step_dev, step_kernels, step_launches = profiled_ms(
+        torch, lambda: model.decode(cache, step_tokens, L), reps=3)
+    profile = dict(prefill_device_ms=prefill_dev, prefill_launches=prefill_launches,
+                   prefill_top_kernels_ms=top(prefill_kernels),
+                   decode_step_device_ms=step_dev, decode_step_launches=step_launches,
+                   decode_step_top_kernels_ms=top(step_kernels),
+                   decode_step_idle_share=None if step_dev is None
+                   else 1 - step_dev / statistics.median(step_ms))
+    del cache
+
+    # bounds: the step's bytes (every weight but the embedding table, B of
+    # its rows, the K/V of the positions this step attends to, the logits
+    # out); the prefill's operations (2 per weight and token in the
+    # products, and q.k and p.v over the causal pairs)
+    d, H, KV, hd, layers = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    kv_bytes = [2 * layers * B * (p + 1) * KV * hd * 2 for p in range(L, L + N - 1)]
+    step_bytes = [param_bytes - tok_bytes + B * d * 2 + kv + B * cfg.vocab_size * 2
+                  for kv in kv_bytes]
+    step_bound_ms = statistics.mean(step_bytes) / HBM_BYTES_PER_S * 1e3
+    prefill_ops = (2 * (n_params - tok_params) * B * L
+                   + 4 * B * H * hd * (L * (L + 1) // 2) * layers)
+    prefill_bound_ms = prefill_ops / BF16_TENSOR_OPS_PER_S * 1e3
+    step_med = statistics.median(step_ms)
+    out = dict(
+        config=dict(arch=MODEL_ARCH, layers=layers, d_model=d, heads=H, kv_heads=KV,
+                    head_dim=hd, d_ff=cfg.d_ff, vocab=cfg.vocab_size, dtype="bfloat16",
+                    parameters=n_params, parameter_bytes=param_bytes),
+        requests=dict(batch=B, prompt_tokens=L, new_tokens=N, decode_steps=N - 1,
+                      cache_positions=L + N, cache_bytes=2 * layers * B * (L + N) * KV * hd * 2),
+        init_seconds=init_s, generate_seconds=generate_s,
+        prefill_ms=prefill_ms, prefill_host_ms=prefill_host_ms,
+        prefill_tokens_per_s=B * L / prefill_ms * 1e3,
+        prefill_bound_ms=prefill_bound_ms, prefill_bound_by="operations",
+        prefill_operations=prefill_ops, prefill_share_of_bound=prefill_bound_ms / prefill_ms,
+        decode_step_ms=dict(median=step_med, min=min(step_ms), max=max(step_ms),
+                            spread=max(step_ms) - min(step_ms),
+                            p90=statistics.quantiles(step_ms, n=10)[-1]),
+        decode_step_host_ms=dict(median=statistics.median(step_host_ms), max=max(step_host_ms)),
+        decode_steps_ms=step_ms,
+        decode_tokens_per_s=B / step_med * 1e3,
+        decode_step_bytes=statistics.mean(step_bytes), decode_step_bound_ms=step_bound_ms,
+        decode_bound_by="bytes", decode_share_of_bound=step_bound_ms / step_med,
+        max_memory_allocated=peak, finite=True, repeat_bit_identical=same,
+        conditioning=conditioning, profile=profile)
+    del model, logits, tokens, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def held_check(torch, cfgs, models, api, serve_mod):
+    """The serve shape (MODEL_BATCH x MODEL_PROMPT, MODEL_NEW new tokens,
+    bf16, published widths) cut to one layer, where the function is
+    well-conditioned: every logit of ``generate`` within MODEL_LOGIT_LIMIT
+    of the teacher-forced forward, and a planted fault (each decode step
+    one position late: its rope and its cache slot) that the same check
+    must reject."""
+    cfg = cfgs.get_config(MODEL_ARCH).replace(num_layers=1)
+    B, L, N = MODEL_BATCH, MODEL_PROMPT, MODEL_NEW
+    params = models.init_params(models.param_specs(cfg), SEED, DEVICE)
+    batch = api.make_batch(cfg, B, L, seed=SEED, device=DEVICE)
+    tokens, logits = serve_mod.ServeModel(cfg, params, device=DEVICE).generate(batch, N)
+    ref, _ = teacher_forced(torch, models, cfg, params, batch["tokens"], tokens)
+    err, share, finite = logit_check(torch, logits, ref)
+    largest = float(ref.float().abs().max())
+    per_step = (logits.float() - ref.float()).abs().amax(dim=(0, 2)).tolist()
+    check(finite, "non-finite logits at one layer")
+    check(largest < 8, f"logits up to {largest:.3g}: MODEL_LOGIT_LIMIT assumes |logit| < 8")
+    check(share <= 1.0, f"one layer: decode logits {err:.4g} from the teacher-forced forward "
+                        f"(limit {MODEL_LOGIT_LIMIT})")
+
+    class LateDecode(serve_mod.ServeModel):
+        def decode(self, cache, tokens, pos):
+            return super().decode(cache, tokens, pos + 1)
+    f_tokens, f_logits = LateDecode(cfg, params, device=DEVICE).generate(batch, MODEL_FAULT_NEW)
+    f_ref, _ = teacher_forced(torch, models, cfg, params, batch["tokens"], f_tokens)
+    f_err, f_share, _ = logit_check(torch, f_logits[:, 1:], f_ref[:, 1:])
+    check(f_share > 1.0, f"a decode one position late passed the check ({f_err:.4g})")
+    out = dict(cut={"num_layers": 1}, max_abs_err=err, limit=MODEL_LOGIT_LIMIT,
+               share_of_limit=share, per_step_max_abs_err=per_step, largest_logit=largest,
+               finite=finite, planted_late_decode=dict(max_abs_err=f_err, share_of_limit=f_share),
+               layer0_attention=attention_stats(torch, cfg, params, batch["tokens"][:1, :256]))
+    del params, batch, tokens, logits, ref, f_logits, f_ref
+    # how the disagreement grows with depth (reported, not held)
+    sweep = {}
+    for n in CONDITIONING_DEPTHS:
+        cfg_n = cfg.replace(num_layers=n)
+        params = models.init_params(models.param_specs(cfg_n), SEED, DEVICE)
+        batch = api.make_batch(cfg_n, B, L, seed=SEED, device=DEVICE)
+        tokens, logits = serve_mod.ServeModel(cfg_n, params, device=DEVICE).generate(batch, 8)
+        ref, _ = teacher_forced(torch, models, cfg_n, params, batch["tokens"], tokens)
+        d = (logits.float() - ref.float()).abs()
+        sweep[n] = dict(max_abs=float(d.max()), rms=float(d.pow(2).mean().sqrt()))
+        del params, batch, tokens, logits, ref, d
+    out["decode_vs_forward_by_depth"] = sweep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_stats(torch, cfg, params, tokens):
+    """Layer 0's causal attention logits (q.k / sqrt(hd), the first query
+    head of each KV head) on ``tokens`` [1, T]: their std, and the smallest
+    gap between a query's two largest (near-ties flip hard attention)."""
+    from repro_torch.models import attention, common, transformer
+    with torch.no_grad():
+        T = tokens.shape[1]
+        p = {k: v[0] for k, v in params["segments"][0]["k0_attn_mlp"]["attn"].items()}
+        ln = {k: v[0] for k, v in params["segments"][0]["k0_attn_mlp"]["ln1"].items()}
+        h = common.apply_norm(cfg, ln, transformer._embed_tokens(cfg, params, tokens))
+        pos = torch.arange(T, device=tokens.device)[None]
+        q = attention._project_q(cfg, p, h, pos).float()
+        k = attention._project_kv(cfg, p, h, pos)[0].float()
+        G = cfg.num_heads // cfg.num_kv_heads
+        lg = torch.einsum("lhd,shd->hls", q[0, :, ::G], k[0]) * cfg.head_dim ** -0.5
+        causal = torch.ones(T, T, dtype=torch.bool, device=tokens.device).tril()
+        top2 = lg.masked_fill(~causal, -float("inf")).topk(2, dim=-1).values[:, 1:]
+        return dict(tokens=T, logit_std=float(lg[:, causal].std()),
+                    min_top2_gap=float((top2[..., 0] - top2[..., 1]).min()))
+
+
+def exact_share(got, want, tol):
+    """max |got - want| / (tol + tol |want|): at most 1 passes rtol = atol = tol."""
+    return float(((got.double() - want.double()).abs()
+                  / (tol + tol * want.double().abs())).max())
+
+
+def exact_checks(torch, cfgs, models, api, serve_mod, tree_mod):
+    """Float32 at published widths, depth cut to EXACT_LAYERS. Where the
+    reference's tests run it (DECODE_CONSISTENCY_ARCHS), token-by-token
+    decode over EXACT_T tokens against the teacher-forced forward at 2e-3;
+    for granite-8b also prefill(8) then 4 decode steps at 5e-3 and the
+    card's forward against the port's CPU forward with the same weights at
+    CARD_VS_CPU_TOL; for the other two, shapes and finite values of forward
+    and two decode steps. TF32 is off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch, cut in EXACT_LAYERS.items():
+        t = time.perf_counter()
+        cfg = cfgs.get_config(arch).replace(compute_dtype="float32", param_dtype="float32",
+                                            **cut)
+        if cfg.family == "moe":      # no routing drops, as the reference's test
+            cfg = cfg.replace(moe_capacity_factor=float(cfg.num_experts / cfg.moe_top_k))
+        torch.cuda.reset_peak_memory_stats()
+        specs = tree_mod.tree_map(lambda s: replace(s, dtype=torch.float32),
+                                  models.param_specs(cfg),
+                                  is_leaf=lambda x: isinstance(x, models.ParamSpec))
+        params = models.init_params(specs, SEED, DEVICE)
+        n_params = sum(x.numel() for x in tree_mod.leaves(params))
+        T = EXACT_T
+        batch = api.make_batch(cfg, 1, T, seed=3, device=DEVICE)
+        row = dict(cut=cut, parameters=n_params)
+        with torch.no_grad():
+            ref, aux, _ = models.forward(cfg, params, batch)
+            check(tuple(ref.shape) == (1, T, cfg.vocab_size), f"{arch}: logits {tuple(ref.shape)}")
+            check(bool(torch.isfinite(ref).all()) and bool(torch.isfinite(aux)),
+                  f"{arch}: non-finite forward")
+            cache = models.init_params(models.cache_specs(cfg, 1, T), 0, DEVICE)
+            steps = T if arch in DECODE_CONSISTENCY_ARCHS else 2
+            share = 0.0
+            for i in range(steps):
+                logits, cache = models.decode_step(cfg, params, cache,
+                                                   batch["tokens"][:, i:i + 1], i)
+                check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite decode at {i}")
+                if arch in DECODE_CONSISTENCY_ARCHS:
+                    share = max(share, exact_share(logits, ref[:, i], 2e-3))
+            if arch in DECODE_CONSISTENCY_ARCHS:
+                row["decode_vs_forward_share_of_2e-3"] = share
+                check(share <= 1.0, f"{arch}: decode diverges from forward ({share:.3g} of 2e-3)")
+            if arch == MODEL_ARCH:
+                row.update(granite_handoff(torch, cfg, params, models, api, serve_mod, tree_mod))
+        row.update(seconds=time.perf_counter() - t, max_memory_allocated=torch.cuda.max_memory_allocated())
+        out[arch] = row
+        del params, cache, ref, logits, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def granite_handoff(torch, cfg, params, models, api, serve_mod, tree_mod):
+    """prefill(8) then 4 decode steps against forward at 5e-3; the card's
+    forward against the CPU's at CARD_VS_CPU_TOL (the same weights, copied)."""
+    T, extra = 8, 4
+    full = api.make_batch(cfg, 1, T + extra, seed=5, device=DEVICE)
+    ref = models.forward(cfg, params, full)[0]
+    last, pre = serve_mod.make_prefill_step(cfg)(params, {"tokens": full["tokens"][:, :T]})
+    share = exact_share(last, ref[:, T - 1], 5e-3)
+    cache = models.init_params(models.cache_specs(cfg, 1, T + extra), 0, DEVICE)
+
+    def fit(p, z):
+        z[tuple(slice(0, s) for s in p.shape)] = p
+        return z
+    cache = tree_mod.tree_map(fit, pre, cache)
+    for t in range(T, T + extra):
+        logits, cache = models.decode_step(cfg, params, cache, full["tokens"][:, t:t + 1], t)
+        share = max(share, exact_share(logits, ref[:, t], 5e-3))
+    check(share <= 1.0, f"granite prefill->decode diverges ({share:.3g} of 5e-3)")
+    host = tree_mod.tree_map(lambda x: x.cpu(), params)
+    cpu = models.forward(cfg, host, {"tokens": full["tokens"].cpu()})[0]
+    cpu_share = exact_share(ref.cpu(), cpu, CARD_VS_CPU_TOL)
+    check(cpu_share <= 1.0,
+          f"granite card forward vs CPU forward ({cpu_share:.3g} of {CARD_VS_CPU_TOL})")
+    one = cfg.replace(num_layers=1)
+    host1 = dict(host, segments=[tree_mod.tree_map(lambda x: x[:1], host["segments"][0])])
+    card1 = dict(params, segments=[tree_mod.tree_map(lambda x: x[:1], params["segments"][0])])
+    cpu1 = models.forward(one, host1, {"tokens": full["tokens"].cpu()})[0]
+    ref1 = models.forward(one, card1, full)[0].cpu()
+    return {"prefill_then_decode_share_of_5e-3": share,
+            "card_vs_cpu_1_layer_share_of_1e-4": exact_share(ref1, cpu1, 1e-4),
+            f"card_vs_cpu_share_of_{CARD_VS_CPU_TOL}": cpu_share,
+            "card_vs_cpu_share_of_1e-4": exact_share(ref.cpu(), cpu, 1e-4),
+            "card_vs_cpu_max_abs": float((ref.cpu().double() - cpu.double()).abs().max())}
+
+
+def phase_model(torch, cfgs, models, api, serve_mod, tree_mod, counted, card):
+    """The model serve stack on the card: granite_serve, held_check, then
+    exact_checks.
+    No hand-written kernel of the port is on this path: each wrapper's
+    count is set to 0 before and read after, and must stay 0."""
+    t_phase = time.perf_counter()
+    for fn in counted:
+        fn.launches = 0
+    serve = granite_serve(torch, cfgs, models, api, serve_mod, tree_mod)
+    held = held_check(torch, cfgs, models, api, serve_mod)
+    exact = exact_checks(torch, cfgs, models, api, serve_mod, tree_mod)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    check(not any(launches.values()), f"kernels launched on the model path: {launches}")
+    emit("model", card=card, serve=serve, held_check=held, exact=exact,
+         kernel_launches=launches,
+         cuts={MODEL_ARCH + " serve": "none (36 layers, published widths)",
+               MODEL_ARCH + " held check": {"num_layers": 1},
+               **{a: c for a, c in EXACT_LAYERS.items()}},
+         seconds=time.perf_counter() - t_phase)
+
+
 def profiled_ms(torch, fn, reps=10):
     """(device ms per call, {kernel name: its device ms per call}, device
     launches per call) from torch.profiler: the summed device time of what
@@ -1476,6 +1898,10 @@ def main():
     from repro_torch.telemetry import trace
     from repro_torch.train import _tree as tree_mod
     from repro_torch.zns import ZonedDevice
+    import repro_torch.configs as cfgs
+    import repro_torch.models as models
+    import repro_torch.models.api as api
+    import repro_torch.serve.step as serve_mod
 
     t_start = time.perf_counter()
     try:
@@ -1493,6 +1919,9 @@ def main():
         phase_pipeline(torch, ZonedDevice, array_mod, csd_mod, data_mod, zf_kernel, trace,
                        smi_line)
         phase_checkpoint(torch, ZonedDevice, train_mod, tree_mod, crash_mod, smi_line)
+        phase_model(torch, cfgs, models, api, serve_mod, tree_mod,
+                    (zf_kernel.filtered_reduce, zf_kernel.filtered_reduce_batched,
+                     pa_kernel.paged_attention_kernel), smi_line)
         times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref)
     except PhaseFailed as e:
         emit("failed", error=str(e))

@@ -1,0 +1,24 @@
+"""granite-8b [dense] — 36L d_model=4096 32H (GQA kv=8) d_ff=14336
+vocab=49152; llama-architecture code model. [arXiv:2405.04324; hf]
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="granite-8b",
+    family="dense",
+    num_layers=36,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=14336,
+    vocab_size=49152,
+    rope_theta=10000.0,
+)
+
+
+def reduced() -> ModelConfig:
+    return CONFIG.replace(
+        num_layers=3, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=512, attn_chunk=32,
+    )

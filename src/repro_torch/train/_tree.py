@@ -12,7 +12,8 @@ The nodes are ``dict`` (keys sorted), ``list`` and ``tuple`` (in order) and
 ``None`` (no children). The leaves are tensors, numpy arrays and scalars,
 and Python numbers. Any other type raises ``TypeError``: a namedtuple, an
 ``OrderedDict`` or a custom node would each need a rule of JAX's, and a
-guess would reorder leaves silently.
+guess would reorder leaves silently. ``is_leaf`` takes a node for a leaf, as
+JAX's does (the model's trees of ``ParamSpec``).
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ import torch
 from repro_torch._device import resolve_device
 
 __all__ = ["TreeDef", "DictKey", "SequenceKey", "flatten", "flatten_with_path",
-           "unflatten", "leaves", "keystr", "leaf_to_host", "tree_from_numpy"]
+           "unflatten", "leaves", "tree_map", "keystr", "leaf_to_host",
+           "tree_from_numpy"]
 
 _LEAF_TYPES = (torch.Tensor, np.ndarray, np.generic, numbers.Number)
 
@@ -80,17 +82,21 @@ class TreeDef:
         return f"PyTreeDef({self._text()})"
 
 
-def _flatten(tree: Any, path: tuple, out: list) -> TreeDef:
+def _flatten(tree: Any, path: tuple, out: list, is_leaf) -> TreeDef:
     kind = type(tree)
+    if is_leaf is not None and is_leaf(tree):
+        out.append((path, tree))
+        return TreeDef("leaf")
     if tree is None:
         return TreeDef("none")
     if kind is dict:
         keys = tuple(sorted(tree))
         return TreeDef("dict", keys, tuple(
-            _flatten(tree[k], (*path, DictKey(k)), out) for k in keys))
+            _flatten(tree[k], (*path, DictKey(k)), out, is_leaf) for k in keys))
     if kind is list or kind is tuple:
         return TreeDef(kind.__name__, (), tuple(
-            _flatten(x, (*path, SequenceKey(i)), out) for i, x in enumerate(tree)))
+            _flatten(x, (*path, SequenceKey(i)), out, is_leaf)
+            for i, x in enumerate(tree)))
     if isinstance(tree, (dict, list, tuple)) or not isinstance(tree, _LEAF_TYPES):
         raise TypeError(f"{kind.__qualname__} is neither a node this module "
                         "flattens (dict, list, tuple, None) nor a leaf")
@@ -98,20 +104,31 @@ def _flatten(tree: Any, path: tuple, out: list) -> TreeDef:
     return TreeDef("leaf")
 
 
-def flatten_with_path(tree: Any) -> tuple[list[tuple[tuple, Any]], TreeDef]:
+def flatten_with_path(tree: Any, is_leaf=None) -> tuple[list[tuple[tuple, Any]], TreeDef]:
     """``([(path, leaf), ...], treedef)`` in JAX's order."""
     out: list = []
-    treedef = _flatten(tree, (), out)
+    treedef = _flatten(tree, (), out, is_leaf)
     return out, treedef
 
 
-def flatten(tree: Any) -> tuple[list, TreeDef]:
-    pairs, treedef = flatten_with_path(tree)
+def flatten(tree: Any, is_leaf=None) -> tuple[list, TreeDef]:
+    pairs, treedef = flatten_with_path(tree, is_leaf)
     return [leaf for _, leaf in pairs], treedef
 
 
 def leaves(tree: Any) -> list:
     return flatten(tree)[0]
+
+
+def tree_map(fn, tree: Any, *rest: Any, is_leaf=None) -> Any:
+    """``fn`` over the leaves of ``tree`` and of the trees in ``rest``, which
+    share its structure, as ``jax.tree.map``."""
+    flat, treedef = flatten(tree, is_leaf)
+    others = [flatten(r, is_leaf) for r in rest]
+    for _, td in others:
+        if str(td) != str(treedef):
+            raise ValueError(f"tree structures differ: {td} and {treedef}")
+    return unflatten(treedef, [fn(*xs) for xs in zip(flat, *(o for o, _ in others))])
 
 
 def keystr(path: tuple) -> str:

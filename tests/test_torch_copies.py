@@ -19,9 +19,12 @@ COPIED = [
     "telemetry/health.py", "telemetry/alerts.py",
     "core/programs.py", "core/verifier.py", "core/cache.py", "core/prefetch.py",
     "array/queues.py", "array/striping.py", "array/rebuild.py",
+    "models/config.py", "configs/__init__.py",
+    *(f"configs/{p.name}" for p in sorted((SRC / "repro" / "configs").glob("*.py"))
+      if p.name != "__init__.py"),
 ]
 PACKAGES = ["zns/__init__.py", "faults/__init__.py", "telemetry/__init__.py",
-            "array/__init__.py"]
+            "array/__init__.py", "models/__init__.py"]
 
 
 def reference(path):
