@@ -69,6 +69,30 @@ Phases, one JSON line each; any failed phase exits non-zero:
             2e-3 where the reference's tests run it, granite's prefill then
             decode at 5e-3 and its card forward against the CPU's at 2e-3,
             shapes and finite values elsewhere. No kernel of the port runs
+  train     the training path: h2o-danube-1.8b at its published widths and
+            depth (24 layers, bf16, 1.83 B random parameters) through
+            launch/train.py's wiring (a zoned corpus of 4,097-token records,
+            ZoneDataPipeline, PrefetchLoader, Trainer): 4 x 4,096 tokens a
+            step in 2 micro-batches, one warm-up and 3 timed steps (CUDA
+            events, host clock beside), tokens/s, peak memory, beside the
+            bound, and one step under the profiler. Held: finite losses and
+            grad norms, the first loss in (0.1, 3 ln V); at two layers a
+            lower loss after 4 steps on one repeated batch (at 24 the
+            reference's initialisation makes the gradient explode, so
+            there it is reported); at one layer in float32
+            the card's gradients and updated state against the CPU's
+            within GRAD_TOL per leaf, and a leaf's gradient scaled by
+            1 + GRAD_FAULT that this check must reject; the update itself
+            within UPDATE_TOL where the gradient is above a floor at
+            which no sign can differ (an update scaled by 1 + GRAD_FAULT
+            must fail);
+            at one layer in bf16 the card's gradient against the CPU's
+            within BF16_TOL or twice the CPU's own bf16 error (a planted
+            fault must fail); at two layers the
+            reference's exact-resume case through ZonedCheckpointStore,
+            bit for bit under deterministic algorithms, and a resume that
+            does not replay the pipeline, which must differ. No kernel of
+            the port runs
   timing    kernel, plain-version and library times on the card (CUDA events),
             with the device kernels one call runs
 
@@ -78,6 +102,8 @@ around it, it exits non-zero and prints no result.
 """
 import gc
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -194,6 +220,49 @@ DECODE_CONSISTENCY_ARCHS = (
     "h2o-danube-1.8b", "starcoder2-3b", "granite-8b", "command-r-plus-104b",
     "grok-1-314b", "deepseek-moe-16b", "mamba2-780m", "recurrentgemma-9b",
 )
+# the train phase: h2o-danube-1.8b (src/repro/configs/h2o_danube_1_8b.py) at
+# its published widths and depth (24 layers, 1.83 B parameters), bf16,
+# random weights from init_params(seed 0), through launch/train.py's wiring:
+# sequences of 4,096 tokens (train_4k's length), 4 a step in 2 micro-batches
+TRAIN_ARCH = "h2o-danube-1.8b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 4096, 4, 2
+TRAIN_STEPS = 4                 # one warm-up step, then 3 timed
+TRAIN_LR = 3e-4
+TRAIN_REPEAT = 4                # steps on one repeated batch (the loss check, two layers)
+# gradients, card against CPU: one layer, float32, TF32 off, 2 x 256 tokens,
+# each leaf's relative L2 error. float32 against float64 reads at most about
+# 9e-5 at this shape on either device (the attention-score leaves: tok, wq,
+# wk, ln1; the train line's f32_vs_f64_max_relative), so two float32
+# evaluation orders differ by up to about 1.8e-4; 1e-3 leaves room for other
+# summation orders (the one-layer forward read 1.01x of 1e-4 elementwise),
+# and a leaf scaled by 1 + GRAD_FAULT lands near 10 (PERF.md, the train cell)
+GRAD_CHECK = dict(num_layers=1, batch=2, seq=256)
+GRAD_TOL = 1e-3
+GRAD_FAULT = 1e-2
+# the update p - p0 of that step, held where the CPU's gradient is above a
+# floor of its leaf's rms. If each float32 gradient of a leaf lies within n
+# rms of the float64 one elementwise (n measured on both devices), no
+# element above 2 n rms can take another sign on the other device: the
+# floor is 4 n, and at least UPDATE_FLOOR. AdamW's first steps move an
+# element by about lr whatever its size, and the sign decides the
+# direction. Above the floor the update differs only where p - lr * delta
+# rounds to another float32: one ulp of a norm's scale (1.0) against an
+# update of 2.2e-4 is 5e-4 of it, so UPDATE_TOL (relative L2) holds if every
+# element rounded apart, and an update off by 1 + GRAD_FAULT lands near 10
+UPDATE_FLOOR = 1e-2
+UPDATE_TOL = 1e-3
+# the same step's gradient in bfloat16 (the main path's dtype), card against
+# CPU, one layer: each leaf within BF16_TOL (the port's bf16 module
+# tolerance) or twice the CPU's own bf16 distance from the float32 gradient
+# of the same bf16 weights, where that is larger (tests/test_torch_grads.py::
+# bf16_share); a leaf zero in float32 (below 1e-6 of the whole) stays below
+# BF16_NOISE of it; the planted fault scales a leaf by 1 + 10 x its bound
+BF16_TOL, BF16_NOISE = 2e-2, 1e-3
+# exact resume (tests/test_checkpoint.py::test_preemption_exact_resume):
+# two layers (0.30 B parameters, a 3 GB train state), bf16, 2 x 4,096 tokens
+RESUME_LAYERS, RESUME_BATCH, RESUME_STEPS = 2, 2, 6
+# a leaf lies in one zone: the embedding's float32 moments are 328 MB
+RESUME_ZONES, RESUME_ZONE_BYTES = 24, 512 * 1024 * 1024
 # tests/test_faults.py::TestCrashHarness::test_raid1_sweep_never_torn
 SWEEP = dict(num_devices=4, num_zones=6, member_zone_bytes=256 * 1024, stripe_blocks=4,
              redundancy="raid1")
@@ -1687,13 +1756,468 @@ def phase_model(torch, cfgs, models, api, serve_mod, tree_mod, counted, card):
          seconds=time.perf_counter() - t_phase)
 
 
-def profiled_ms(torch, fn, reps=10):
+# ------------------------------------------------------------------ training
+
+def leaf_shares(torch, got, want, tol):
+    """Each leaf's ||got - want|| / (tol ||want||), in leaf order (a leaf
+    whose ``want`` is zero must be zero in ``got``), in float64 on the card."""
+    out = []
+    for a, b in zip(got, want):
+        a, b = a.to(DEVICE, torch.float64), b.to(DEVICE, torch.float64)
+        norm = float(b.norm())
+        out.append(float((a - b).norm()) / (tol * norm) if norm else float(a.abs().max() > 0))
+    return out
+
+
+def train_main_run(torch, launch, models, step_mod, opt_mod, tree_mod):
+    """h2o-danube-1.8b at its published widths and depth through
+    ``launch.build``: the corpus, ZoneDataPipeline -> PrefetchLoader ->
+    Trainer on the card. TRAIN_STEPS steps with CUDA events around each
+    step call (the host clock beside: its enqueue, and the trainer's own
+    step seconds, which end at the metrics' read). Then one step on the
+    last batch under the profiler, and that batch's loss after it."""
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--grad-accum", str(TRAIN_ACCUM), "--lr", str(TRAIN_LR),
+            "--warmup-steps", "1", "--device", DEVICE]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    run = launch.build(launch.parse_args(argv))
+    build_s = time.perf_counter() - t
+    cfg, trainer = run.cfg, run.trainer
+    inner, events, last = trainer.step_fn, [], {}
+
+    def timed(state, batch):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = inner(state, batch)
+        end.record()
+        events.append((start, end, (time.perf_counter() - t0) * 1e3))
+        last["batch"] = batch
+        return out
+    trainer.step_fn = timed
+    t = time.perf_counter()
+    trainer.run(run.batches)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    check(len(hist) == TRAIN_STEPS, f"{len(hist)} steps of {TRAIN_STEPS}")
+    step_ms = [s.elapsed_time(e) for s, e, _ in events]
+    enqueue_ms = [h for _, _, h in events]
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"non-finite loss or grad norm: {losses} {norms}")
+    check(0.1 < losses[0] < 3 * np.log(cfg.vocab_size),
+          f"first loss {losses[0]:.4g} outside (0.1, 3 ln V)")
+    params = trainer.state["params"]
+    leaves = tree_mod.leaves(params)
+    n_params = sum(x.numel() for x in leaves)
+    tok_params = params["embed"]["tok"].numel()
+    state_bytes = sum(x.numel() * x.element_size() for x in tree_mod.leaves(trainer.state))
+    del leaves, params
+
+    # one more step on the last batch (its own schedule: the run's has
+    # decayed to 0 by its last step) under the profiler, and that batch's
+    # loss after it. Reported, not held: at this depth the reference's
+    # initialisation makes the gradient explode (grad norms of order 1e17),
+    # and train_loss_check holds the loss's fall at two layers
+    batch = last.pop("batch")
+    one_step = step_mod.make_train_step(cfg, step_mod.TrainHyper(
+        grad_accum=TRAIN_ACCUM, adamw=opt_mod.AdamWHyper(lr=TRAIN_LR, warmup_steps=1,
+                                                         total_steps=100)))
+    mets = []
+    t = time.perf_counter()
+    dev_ms, kernels, launches = profiled_ms(
+        torch, lambda: mets.append(one_step(trainer.state, batch)[1]), reps=1, warm=False)
+    profile_s = time.perf_counter() - t
+    with torch.no_grad():
+        after = float(models.loss_fn(cfg, trainer.state["params"], batch)[0])
+    mets = {k: float(v) for k, v in mets[0].items()}
+    check(np.isfinite([mets["loss"], mets["grad_norm"], after]).all(),
+          "non-finite loss or grad norm in the profiled step")
+
+    # the bound: 6 operations a non-embedding parameter and token, and the
+    # causal attention's 6 L^2 H hd a sequence and layer, at the dense bf16 rate
+    B, L, H, hd = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.head_dim
+    ops = 6 * (n_params - tok_params) * B * L + 6 * L * L * H * hd * cfg.num_layers * B
+    bound = ops / BF16_TENSOR_OPS_PER_S * 1e3
+    timed_ms = step_ms[1:]
+    med = statistics.median(timed_ms)
+    out = dict(
+        config=dict(arch=TRAIN_ARCH, layers=cfg.num_layers, d_model=cfg.d_model, heads=H,
+                    kv_heads=cfg.num_kv_heads, head_dim=hd, d_ff=cfg.d_ff,
+                    vocab=cfg.vocab_size, sliding_window=cfg.sliding_window,
+                    dtype=cfg.param_dtype, remat=cfg.remat, attn_chunk=cfg.attn_chunk,
+                    parameters=n_params, train_state_bytes=state_bytes),
+        run=dict(batch=B, seq=L, grad_accum=TRAIN_ACCUM, tokens_per_step=B * L,
+                 lr=TRAIN_LR, warmup_steps=1, steps=TRAIN_STEPS, untimed_steps=1),
+        build_seconds=build_s, run_seconds=run_s,
+        step_ms=step_ms, step_ms_median=med, step_ms_min=min(timed_ms),
+        step_ms_max=max(timed_ms), step_enqueue_ms=enqueue_ms,
+        step_host_seconds=[h["step_seconds"] for h in hist],
+        tokens_per_s=B * L / med * 1e3, operations=ops, bound_ms=bound,
+        bound_by="operations", share_of_bound=bound / med,
+        max_memory_allocated=peak, losses=losses, grad_norms=norms,
+        lrs=[h["lr"] for h in hist],
+        profiled_step=dict(loss_before=mets["loss"], loss_after=after,
+                           grad_norm=mets["grad_norm"], lr=mets["lr"]),
+        profile=dict(seconds=profile_s, step_device_ms=dev_ms, step_launches=launches,
+                     step_idle_share=None if dev_ms is None else 1 - dev_ms / med,
+                     top_kernels_ms=dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10])))
+    del run, trainer, batch, one_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _init_one_layer(torch, cfgs, models, tree_mod, dtype):
+    """h2o-danube-1.8b at published widths cut to GRAD_CHECK's one layer,
+    in ``dtype``, with init_params(SEED)'s weights on the card."""
+    cfg = cfgs.get_config(TRAIN_ARCH).replace(num_layers=GRAD_CHECK["num_layers"],
+                                              compute_dtype=dtype, param_dtype=dtype)
+    specs = tree_mod.tree_map(lambda s: replace(s, dtype=getattr(torch, dtype)),
+                              models.param_specs(cfg),
+                              is_leaf=lambda x: isinstance(x, models.ParamSpec))
+    return cfg, models.init_params(specs, SEED, DEVICE)
+
+
+def train_grad_check(torch, cfgs, models, api, step_mod, opt_mod, tree_mod):
+    """h2o-danube-1.8b at published widths cut to one layer, float32, TF32
+    off: one ``make_train_step`` (from step 1, so its lr is not 0) on the
+    card and on the CPU with the same weights and batch. Each leaf's
+    gradient (as the step's ``loss_and_grads`` returns it), m, v and
+    updated parameters within GRAD_TOL (v: twice it) of the CPU's, relative
+    L2; and a leaf's gradient scaled by 1 + GRAD_FAULT, which must fail.
+    The update p - p0 is held within UPDATE_TOL on the elements whose CPU
+    gradient is above its leaf's floor (the others are counted): below it
+    an element that is rounding noise around zero may take either sign on
+    either device and move by 2 lr. An update scaled by 1 + GRAD_FAULT must
+    fail that."""
+    t_check = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, card_params = _init_one_layer(torch, cfgs, models, tree_mod, "float32")
+    batch = api.make_batch(cfg, GRAD_CHECK["batch"], GRAD_CHECK["seq"], seed=SEED, device=DEVICE)
+    hyper = step_mod.TrainHyper(adamw=opt_mod.AdamWHyper(lr=TRAIN_LR, warmup_steps=1,
+                                                         total_steps=10))
+    real = step_mod.loss_and_grads
+    runs = {}
+    host_params = tree_mod.tree_map(lambda x: x.to("cpu", copy=True), card_params)
+    host_params_f32 = tree_mod.tree_map(lambda x: x.to(DEVICE, copy=True), card_params)
+    for where, params in (("card", card_params), ("cpu", host_params)):
+        p0 = tree_mod.tree_map(lambda x: x.clone(), params)
+        state = {"params": params,
+                 "m": tree_mod.tree_map(torch.zeros_like, params),
+                 "v": tree_mod.tree_map(torch.zeros_like, params),
+                 "step": torch.ones((), dtype=torch.int32, device=params["final_norm"]["scale"].device)}
+        seen = []
+
+        def recording(*args, **kw):
+            out = real(*args, **kw)
+            seen.append(out[2])
+            return out
+        step_mod.loss_and_grads = recording
+        try:
+            t = time.perf_counter()
+            state, mets = step_mod.make_train_step(cfg, hyper)(
+                state, {k: v.to(params["final_norm"]["scale"].device) for k, v in batch.items()})
+            loss = float(mets["loss"])
+            seconds = time.perf_counter() - t
+        finally:
+            step_mod.loss_and_grads = real
+        runs[where] = dict(grads=seen[0], m=tree_mod.leaves(state["m"]),
+                           v=tree_mod.leaves(state["v"]), params=tree_mod.leaves(state["params"]),
+                           update=[a - b for a, b in zip(tree_mod.leaves(state["params"]),
+                                                         tree_mod.leaves(p0))],
+                           loss=loss, grad_norm=float(mets["grad_norm"]), seconds=seconds)
+    card, cpu = runs["card"], runs["cpu"]
+    paths = [tree_mod.keystr(p) for p, _ in tree_mod.flatten_with_path(card_params)[0]]
+    # the bounds' premises: each float32 gradient's relative L2 distance
+    # from float64's (the same weights and batch, on the card), and its
+    # largest element distance over its leaf's rms
+    cfg64 = cfg.replace(compute_dtype="float64", param_dtype="float64")
+    _, _, g64 = real(cfg64, tree_mod.tree_map(lambda x: x.double(), host_params_f32),
+                     {k: v.to(DEVICE) for k, v in batch.items()})
+    f64_dist = {where: max(leaf_shares(torch, runs[where]["grads"], g64, 1.0))
+                for where in ("card", "cpu")}
+    f64_elem = {where: [float((a.to(DEVICE, torch.float64) - b).abs().max()
+                              / b.pow(2).mean().sqrt()) for a, b in zip(runs[where]["grads"], g64)]
+                for where in ("card", "cpu")}
+    del g64
+    shares = {name: leaf_shares(torch, card[name], cpu[name], GRAD_TOL * (2 if name == "v" else 1))
+              for name in ("grads", "m", "v", "params")}
+    worst = {name: dict(share=max(s), leaf=paths[int(np.argmax(s))]) for name, s in shares.items()}
+    for name in ("grads", "m", "v", "params"):
+        w = worst[name]
+        check(w["share"] <= 1.0, f"card {name} vs CPU: {w['leaf']} at {w['share']:.3g} of the bound")
+    planted = list(card["grads"])
+    planted[0] = planted[0] * (1 + GRAD_FAULT)
+    fault = leaf_shares(torch, planted[:1], cpu["grads"][:1], GRAD_TOL)[0]
+    check(fault > 1.0, f"a gradient scaled by 1 + {GRAD_FAULT} passed ({fault:.3g} of the bound)")
+
+    # the update, on the elements whose CPU gradient is above its leaf's
+    # floor: 4 n rms, n the larger device's largest float32 element
+    # distance from float64 in that leaf, and at least UPDATE_FLOOR rms
+    floors = [max(UPDATE_FLOOR, 4 * max(a, b)) for a, b in zip(f64_elem["card"], f64_elem["cpu"])]
+    kept = []
+    for g, floor in zip(cpu["grads"], floors):
+        g = g.to(DEVICE, torch.float64)
+        kept.append(g.abs() > floor * g.pow(2).mean().sqrt())
+    excluded = sum(int((~k).sum()) for k in kept)
+    upd = [(a.to(DEVICE, torch.float64)[k], b.to(DEVICE, torch.float64)[k])
+           for a, b, k in zip(card["update"], cpu["update"], kept)]
+    upd_shares = leaf_shares(torch, [a for a, _ in upd], [b for _, b in upd], UPDATE_TOL)
+    upd_worst = dict(share=max(upd_shares), leaf=paths[int(np.argmax(upd_shares))])
+    check(upd_worst["share"] <= 1.0,
+          f"card update vs CPU: {upd_worst['leaf']} at {upd_worst['share']:.3g} of the bound")
+    upd_fault = max(leaf_shares(torch, [a * (1 + GRAD_FAULT) for a, _ in upd],
+                                [b for _, b in upd], UPDATE_TOL))
+    check(upd_fault > 1.0, f"an update scaled by 1 + {GRAD_FAULT} passed "
+                           f"({upd_fault:.3g} of the bound)")
+    all_upd = leaf_shares(torch, card["update"], cpu["update"], UPDATE_TOL)
+    out = dict(cut=GRAD_CHECK, dtype="float32", tf32=False, tol=GRAD_TOL,
+               worst_share=worst,
+               f32_vs_f64_max_relative=f64_dist,
+               f32_vs_f64_max_element_over_rms={w: dict(zip(paths, f64_elem[w]))
+                                                for w in ("card", "cpu")},
+               update=dict(tol=UPDATE_TOL, floor_over_rms=dict(zip(paths, floors)),
+                           worst_share=upd_worst,
+                           elements=sum(k.numel() for k in kept), excluded=excluded,
+                           excluded_by_leaf=dict(zip(paths, [int((~k).sum()) for k in kept])),
+                           planted_share=upd_fault,
+                           all_elements_worst_share=dict(
+                               share=max(all_upd), leaf=paths[int(np.argmax(all_upd))])),
+               grads_share_by_leaf=dict(zip(paths, shares["grads"])),
+               loss=dict(card=card["loss"], cpu=cpu["loss"]),
+               grad_norm=dict(card=card["grad_norm"], cpu=cpu["grad_norm"]),
+               step_seconds=dict(card=card["seconds"], cpu=cpu["seconds"]),
+               planted_fault=dict(leaf=paths[0], scale=1 + GRAD_FAULT, share=fault),
+               seconds=time.perf_counter() - t_check)
+    del runs, card, cpu, planted, card_params, host_params, host_params_f32, batch, kept, upd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_grad_check_bf16(torch, cfgs, models, api, step_mod, tree_mod):
+    """The main path's dtype: ``loss_and_grads`` of h2o-danube-1.8b at
+    published widths cut to one layer, bf16, on the card and on the CPU
+    with the same weights and batch, and in float32 (TF32 off) on the card
+    from the same bf16 weights. Each card leaf within its bound of the
+    CPU's: BF16_TOL, or twice the CPU's own relative distance from the
+    float32 gradient where that is larger; a leaf that is zero in float32
+    below BF16_NOISE of the whole. A leaf scaled by 1 + 10 x its bound must
+    fail."""
+    t_check = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, card_params = _init_one_layer(torch, cfgs, models, tree_mod, "bfloat16")
+    batch = api.make_batch(cfg, GRAD_CHECK["batch"], GRAD_CHECK["seq"], seed=SEED, device=DEVICE)
+    host_params = tree_mod.tree_map(lambda x: x.to("cpu", copy=True), card_params)
+    t = time.perf_counter()
+    loss_card, _, g_card = step_mod.loss_and_grads(cfg, card_params, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    loss_cpu, _, g_cpu = step_mod.loss_and_grads(
+        cfg, host_params, {k: v.cpu() for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t
+    cfg32 = cfg.replace(compute_dtype="float32", param_dtype="float32")
+    _, _, g32 = step_mod.loss_and_grads(
+        cfg32, tree_mod.tree_map(lambda x: x.float(), card_params), batch)
+    g32 = [g.double() for g in g32]
+    whole = math.sqrt(sum(float(g.pow(2).sum()) for g in g32))
+    own = leaf_shares(torch, g_cpu, g32, 1.0)
+    tols = [max(BF16_TOL, 2 * d) for d in own]
+    shares = []
+    for a, b, t32, tol in zip(g_card, g_cpu, g32, tols):
+        if float(t32.norm()) < 1e-6 * whole:
+            shares.append(float(a.double().norm()) / (BF16_NOISE * whole))
+        else:
+            shares.append(leaf_shares(torch, [a], [b], tol)[0])
+    paths = [tree_mod.keystr(p) for p, _ in tree_mod.flatten_with_path(card_params)[0]]
+    i = int(np.argmax(shares))
+    check(np.isfinite([float(loss_card), float(loss_cpu)]).all(), "non-finite bf16 loss")
+    check(shares[i] <= 1.0, f"card bf16 gradient vs CPU: {paths[i]} at {shares[i]:.3g} "
+                            f"of {tols[i]:.3g}")
+    fault = leaf_shares(torch, [g_card[0] * (1 + 10 * tols[0])], g_cpu[:1], tols[0])[0]
+    check(fault > 1.0, f"a bf16 gradient scaled by 1 + 10 x its bound passed ({fault:.3g})")
+    out = dict(cut=GRAD_CHECK, dtype="bfloat16", tol_floor=BF16_TOL,
+               worst_share=dict(share=shares[i], leaf=paths[i], tol=tols[i]),
+               by_leaf={p: dict(share=s, tol=t, cpu_vs_f32=d)
+                        for p, s, t, d in zip(paths, shares, tols, own)},
+               loss=dict(card=float(loss_card), cpu=float(loss_cpu)),
+               seconds=dict(card=card_s, cpu=cpu_s, check=time.perf_counter() - t_check),
+               planted_fault=dict(leaf=paths[0], scale=1 + 10 * tols[0], share=fault))
+    del card_params, host_params, g_card, g_cpu, g32, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_loss_check(torch, cfgs, models, step_mod, opt_mod):
+    """The loss falls on one repeated batch: h2o-danube-1.8b at published
+    widths cut to RESUME_LAYERS layers, bf16, one RESUME_BATCH x TRAIN_SEQ
+    batch, TRAIN_REPEAT steps at TRAIN_LR (warm-up 1, so the first step's
+    lr is 0); the batch's loss after them below the first step's. At 24
+    layers the reference's initialisation makes the gradient explode (the
+    train line's grad norms) and the loss does not move in a few steps."""
+    t_check = time.perf_counter()
+    cfg = cfgs.get_config(TRAIN_ARCH).replace(num_layers=RESUME_LAYERS)
+    state = step_mod.init_state(cfg, SEED, device=DEVICE)
+    rng = np.random.default_rng(SEED + 1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (RESUME_BATCH, TRAIN_SEQ),
+                                              dtype=np.int32)).to(DEVICE)
+             for k in ("tokens", "labels")}
+    step = step_mod.make_train_step(cfg, step_mod.TrainHyper(
+        adamw=opt_mod.AdamWHyper(lr=TRAIN_LR, warmup_steps=1, total_steps=100)))
+    mets = [{k: float(v) for k, v in step(state, batch)[1].items()} for _ in range(TRAIN_REPEAT)]
+    with torch.no_grad():
+        after = float(models.loss_fn(cfg, state["params"], batch)[0])
+    losses = [m["loss"] for m in mets]
+    check(np.isfinite(losses + [m["grad_norm"] for m in mets] + [after]).all(),
+          "non-finite loss or grad norm on the repeated batch")
+    check(after < losses[0], f"the repeated batch's loss {losses[0]:.4g} -> {after:.4g} "
+                             f"after {TRAIN_REPEAT} steps")
+    out = dict(cut={"num_layers": RESUME_LAYERS}, batch=RESUME_BATCH, seq=TRAIN_SEQ,
+               losses=losses, grad_norms=[m["grad_norm"] for m in mets],
+               lrs=[m["lr"] for m in mets], loss_after=after,
+               seconds=time.perf_counter() - t_check)
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class StoreAt:
+    """A checkpoint store as it stood at ``step``, read-only: a trainer
+    resuming from it restores that step and saves nothing."""
+
+    def __init__(self, store, step):
+        self.store, self.step = store, step
+
+    def latest_step(self):
+        return self.step
+
+    def restore(self, *, like, torch_device=None):
+        return self.store.restore(self.step, like=like, torch_device=torch_device)
+
+    def save(self, step, tree):
+        pass
+
+    def flush(self):
+        pass
+
+
+def train_resume_check(torch, cfgs, ZonedDevice, train_mod, step_mod, opt_mod, trainer_mod,
+                       tree_mod):
+    """tests/test_checkpoint.py::test_preemption_exact_resume at published
+    widths cut to RESUME_LAYERS layers, bf16, RESUME_BATCH x TRAIN_SEQ
+    tokens: RESUME_STEPS steps straight against half of them, a save through
+    ZonedCheckpointStore, a fresh Trainer restoring onto the card, and the
+    other half; step, params, m and v must be torch.equal. The planted
+    fault: the same resume fed the pipeline from its start again (no
+    replay), which must differ. Under deterministic algorithms (the
+    gathers' backward would otherwise accumulate with atomics), with
+    CUBLAS_WORKSPACE_CONFIG set before the process's first cuBLAS call
+    (``main``)."""
+    cfg = cfgs.get_config(TRAIN_ARCH).replace(num_layers=RESUME_LAYERS)
+    rng = np.random.default_rng(SEED)
+    batches = [{k: rng.integers(0, cfg.vocab_size, (RESUME_BATCH, TRAIN_SEQ), dtype=np.int32)
+                for k in ("tokens", "labels")} for _ in range(RESUME_STEPS)]
+    half = RESUME_STEPS // 2
+    hyper = step_mod.TrainHyper(adamw=opt_mod.AdamWHyper(lr=TRAIN_LR, warmup_steps=1,
+                                                         total_steps=RESUME_STEPS))
+    tcfg = trainer_mod.TrainerConfig(total_steps=RESUME_STEPS, checkpoint_every=10 ** 9,
+                                     log_every=10 ** 9, seed=SEED, hyper=hyper)
+    times = {}
+
+    def run(label, trainer, feed):
+        t = time.perf_counter()
+        trainer.run(iter(feed))
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t
+        return trainer
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = run("straight", trainer_mod.Trainer(cfg, tcfg, device=DEVICE), batches)
+        dev = ZonedDevice(num_zones=RESUME_ZONES, zone_bytes=RESUME_ZONE_BYTES)
+        store = train_mod.ZonedCheckpointStore(device=dev, keep=2, torch_device=DEVICE)
+        first = run("first_half_and_save", trainer_mod.Trainer(
+            cfg, replace(tcfg, total_steps=half), store=store, device=DEVICE), batches)
+        check(store.latest_step() == half, f"saved steps {store.steps()}")
+        del first
+        resumed = run("restore_and_second_half", trainer_mod.Trainer(
+            cfg, tcfg, store=store, device=DEVICE), batches)
+        equal = {}
+        for name in ("params", "m", "v", "step"):
+            a, b = tree_mod.leaves(straight.state[name]), tree_mod.leaves(resumed.state[name])
+            equal[name] = len(a) == len(b) and all(
+                x.device.type == torch.device(DEVICE).type and x.dtype == y.dtype
+                and torch.equal(x, y)
+                for x, y in zip(a, b))
+        check(int(resumed.state["step"]) == RESUME_STEPS, "resumed step")
+        check(all(equal.values()), f"resume not bit-exact: {equal}")
+        del resumed
+        faulty = run("resume_without_replay", trainer_mod.Trainer(
+            cfg, tcfg, store=StoreAt(store, half), device=DEVICE), batches[:half] + batches)
+        fault_equal = all(torch.equal(x, y) for x, y in zip(
+            tree_mod.leaves(straight.state["params"]), tree_mod.leaves(faulty.state["params"])))
+        check(not fault_equal, "a resume that does not replay the pipeline matched")
+        n_params = sum(x.numel() for x in tree_mod.leaves(straight.state["params"]))
+        state_bytes = sum(x.numel() * x.element_size() for x in tree_mod.leaves(straight.state))
+        losses = [h["loss"] for h in straight.history]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = dict(cut={"num_layers": RESUME_LAYERS}, batch=RESUME_BATCH, seq=TRAIN_SEQ,
+               steps=RESUME_STEPS, saved_at=half, parameters=n_params,
+               train_state_bytes=state_bytes, zones=RESUME_ZONES, zone_bytes=RESUME_ZONE_BYTES,
+               deterministic_algorithms=True, bit_equal=equal, losses=losses,
+               planted_no_replay_equal=fault_equal, seconds=times)
+    del straight, faulty, store, dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(torch, cfgs, models, api, launch, step_mod, opt_mod, trainer_mod, train_mod,
+                tree_mod, ZonedDevice, counted, card):
+    """The training path on the card: train_main_run, train_grad_check,
+    train_grad_check_bf16, train_loss_check, then train_resume_check. No hand-written kernel of the port is on this
+    path: each wrapper's count is set to 0 before and read after, and must
+    stay 0."""
+    t_phase = time.perf_counter()
+    for fn in counted:
+        fn.launches = 0
+    main_run = train_main_run(torch, launch, models, step_mod, opt_mod, tree_mod)
+    grads = train_grad_check(torch, cfgs, models, api, step_mod, opt_mod, tree_mod)
+    grads_bf16 = train_grad_check_bf16(torch, cfgs, models, api, step_mod, tree_mod)
+    loss = train_loss_check(torch, cfgs, models, step_mod, opt_mod)
+    resume = train_resume_check(torch, cfgs, ZonedDevice, train_mod, step_mod, opt_mod,
+                                trainer_mod, tree_mod)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    check(not any(launches.values()), f"kernels launched on the train path: {launches}")
+    emit("train", card=card, run=main_run, grad_check=grads, grad_check_bf16=grads_bf16,
+         loss_check=loss, exact_resume=resume,
+         kernel_launches=launches,
+         cuts={TRAIN_ARCH + " run": "none (24 layers, published widths)",
+               TRAIN_ARCH + " gradient checks": {"num_layers": GRAD_CHECK["num_layers"]},
+               TRAIN_ARCH + " loss check": {"num_layers": RESUME_LAYERS},
+               TRAIN_ARCH + " exact resume": {"num_layers": RESUME_LAYERS}},
+         seconds=time.perf_counter() - t_phase)
+
+
+def profiled_ms(torch, fn, reps=10, warm=True):
     """(device ms per call, {kernel name: its device ms per call}, device
     launches per call) from torch.profiler: the summed device time of what
     one call runs on the card; (None, {}, None) when the profiler records
-    no device time."""
+    no device time. ``warm``: one call before the profiled ones."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -1868,6 +2392,10 @@ def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref):
 
 
 def main():
+    # cuBLAS reads its workspace setting when its first handle is made; the
+    # train phase's deterministic check needs ":4096:8" (on sm_90 the same
+    # 32 MiB PyTorch chooses by default)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -1896,12 +2424,16 @@ def main():
     from repro_torch.kernels.zone_filter import ref as zf_ref
     from repro_torch.serve import KVZonePool
     from repro_torch.telemetry import trace
-    from repro_torch.train import _tree as tree_mod
+    from repro_torch import _tree as tree_mod
     from repro_torch.zns import ZonedDevice
     import repro_torch.configs as cfgs
     import repro_torch.models as models
     import repro_torch.models.api as api
     import repro_torch.serve.step as serve_mod
+    import repro_torch.launch.train as launch
+    import repro_torch.train.optimizer as opt_mod
+    import repro_torch.train.step as step_mod
+    import repro_torch.train.trainer as trainer_mod
 
     t_start = time.perf_counter()
     try:
@@ -1919,9 +2451,11 @@ def main():
         phase_pipeline(torch, ZonedDevice, array_mod, csd_mod, data_mod, zf_kernel, trace,
                        smi_line)
         phase_checkpoint(torch, ZonedDevice, train_mod, tree_mod, crash_mod, smi_line)
-        phase_model(torch, cfgs, models, api, serve_mod, tree_mod,
-                    (zf_kernel.filtered_reduce, zf_kernel.filtered_reduce_batched,
-                     pa_kernel.paged_attention_kernel), smi_line)
+        counted = (zf_kernel.filtered_reduce, zf_kernel.filtered_reduce_batched,
+                   pa_kernel.paged_attention_kernel)
+        phase_model(torch, cfgs, models, api, serve_mod, tree_mod, counted, smi_line)
+        phase_train(torch, cfgs, models, api, launch, step_mod, opt_mod, trainer_mod, train_mod,
+                    tree_mod, ZonedDevice, counted, smi_line)
         times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref)
     except PhaseFailed as e:
         emit("failed", error=str(e))

@@ -81,7 +81,7 @@ class _JournalEntry:
 def _tree_leaves(tree: Any) -> list[tuple[np.ndarray, str]]:
     """Each leaf on the host with its dtype name (a card tensor through one
     copy; bfloat16 as its uint16 bits)."""
-    from repro_torch.train._tree import leaf_to_host, leaves
+    from repro_torch._tree import leaf_to_host, leaves
     return [leaf_to_host(x) for x in leaves(tree)]
 
 

@@ -7,7 +7,7 @@ axis names + initializer). From that single source of truth we derive:
   * ``abstract_params``       — ``device="meta"`` stand-ins (no allocation);
   * ``load_reference_params`` — the JAX package's parameters, carried over.
 
-Trees are walked in ``jax.tree_util``'s order (``train/_tree.py``), so a
+Trees are walked in ``jax.tree_util``'s order (``repro_torch/_tree.py``), so a
 leaf's path is the same string in both packages. The logical axis names are
 kept for the sharding slice; one device uses none of them.
 """
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.train import _tree
+from repro_torch import _tree
 
 __all__ = ["ParamSpec", "init_params", "abstract_params", "stack_layer_specs",
            "spec_tree_paths", "load_reference_params"]

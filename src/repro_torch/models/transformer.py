@@ -20,10 +20,12 @@ layout and paths exactly.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -34,7 +36,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec, stack_layer_specs
-from repro_torch.train import _tree
+from repro_torch import _tree
 
 __all__ = [
     "Segment", "decoder_layout", "encoder_layout", "param_specs", "cache_specs",
@@ -359,25 +361,41 @@ def _lm_head(cfg, params, x):
     return x @ w.to(cdtype(cfg))
 
 
-def _layer(tree, i: int):
-    """Layer ``i``'s view of a stacked tree (no copy)."""
-    return _tree.tree_map(lambda t: t[i], tree)
+def _layers(tree, n: int) -> list:
+    """The ``n`` per-layer views of a stacked tree (no copy), each leaf
+    unbound once: the backward pass then stacks a leaf's per-layer
+    gradients in one op, where a ``t[i]`` view per layer would add a
+    full-size zero gradient for every layer."""
+    leaves, treedef = _tree.flatten(tree)
+    per_leaf = [t.unbind(0) for t in leaves]
+    return [_tree.unflatten(treedef, [u[i] for u in per_leaf]) for i in range(n)]
 
 
-def _run_segments(cfg, seg_params, layout, x, ctx, collect_cache):
+def _run_segments(cfg, seg_params, layout, x, ctx, collect_cache, remat):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for seg, sp in zip(layout, seg_params):
-        per_layer = []
-        for i in range(seg.repeats):
-            layer_p = _layer(sp, i)
+        def body(x, aux, layer_p, _seg=seg):
+            """One repeat of the segment (the reference's scan body)."""
             cache_out = {}
-            for j, kind in enumerate(seg.kinds):
+            for j, kind in enumerate(_seg.kinds):
                 key = f"k{j}_{kind}"
                 x, a, c = _apply_kind(cfg, kind, layer_p[key], x, ctx, collect_cache)
                 aux = aux + a
                 if c is not None:
                     cache_out[key] = c
+            return x, aux, cache_out
+        # "save_collectives" saves each block's output so a sharded backward
+        # does not re-run the tensor-parallel collectives; on one device it
+        # saves and recomputes what "full" does, so both take this path
+        if remat and cfg.remat != "none" and torch.is_grad_enabled():
+            step = functools.partial(checkpoint, body, use_reentrant=False,
+                                     preserve_rng_state=False)
+        else:
+            step = body
+        per_layer = []
+        for layer_p in _layers(sp, seg.repeats):
+            x, aux, cache_out = step(x, aux, layer_p)
             per_layer.append(cache_out)
         if collect_cache:
             caches.append(_tree.tree_map(lambda *ls: torch.stack(ls), *per_layer))
@@ -388,8 +406,9 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             collect_cache: bool = False, remat: bool = True):
     """batch: tokens [B, L] (+ frames / patches for audio / vlm).
     Returns (logits [B, L, V] compute-dtype, aux_loss, caches_or_None).
-    ``remat`` is accepted for the reference's signature; prefill keeps no
-    activations for a backward pass, so it changes nothing here."""
+    With ``remat`` (and ``cfg.remat`` not "none") and grad enabled, each
+    layer's activations are recomputed in the backward pass instead of kept
+    (``torch.utils.checkpoint``); the values are the same either way."""
     tokens = batch["tokens"]
     B, L = tokens.shape
     dev = tokens.device
@@ -401,7 +420,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         enc_pos = torch.arange(Lf, dtype=torch.int32, device=dev)[None, :].expand(B, Lf)
         enc_ctx = {"positions": enc_pos, "memory": None}
         memory, _, _ = _run_segments(cfg, params["enc_segments"],
-                                     encoder_layout(cfg), frames, enc_ctx, False)
+                                     encoder_layout(cfg), frames, enc_ctx, False, remat)
         memory = apply_norm(cfg, params["enc_norm"], memory)
     elif cfg.family == "vlm":
         memory = batch["patches"].to(cdtype(cfg))  # stub vision frontend
@@ -409,7 +428,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     x = _embed_tokens(cfg, params, tokens)
     ctx = {"positions": positions, "memory": memory}
     x, aux, caches = _run_segments(cfg, params["segments"], decoder_layout(cfg),
-                                   x, ctx, collect_cache)
+                                   x, ctx, collect_cache, remat)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = _lm_head(cfg, params, x)
     return logits, aux * MOE_AUX_WEIGHT, (caches if collect_cache else None)
@@ -423,8 +442,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list, tokens: torch.Tenso
     x = _embed_tokens(cfg, params, tokens)
     ctx = {"pos": int(pos)}
     for seg, sp, sc in zip(decoder_layout(cfg), params["segments"], cache):
-        for i in range(seg.repeats):
-            layer_p, layer_c = _layer(sp, i), _layer(sc, i)
+        for layer_p, layer_c in zip(_layers(sp, seg.repeats), _layers(sc, seg.repeats)):
             for j, kind in enumerate(seg.kinds):
                 key = f"k{j}_{kind}"
                 x, c_out = _decode_kind(cfg, kind, layer_p[key], x, layer_c.get(key), ctx)
@@ -442,8 +460,8 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list, tokens: torch.Tenso
 # -------------------------------------------------------------------- loss
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = True):
-    """Next-token cross-entropy (f32 math over compute-dtype logits). The
-    forward value only: its gradient comes with the training slice."""
+    """Next-token cross-entropy (f32 math over compute-dtype logits);
+    differentiable, ``remat`` as in :func:`forward`."""
     logits, aux, _ = forward(cfg, params, batch, remat=remat)
     labels = batch["labels"].long()
     logits = logits.float()

@@ -10,7 +10,7 @@ from torch import nn
 from repro_torch._device import resolve_device
 from repro_torch.models import cache_specs, decode_step, forward, init_params
 from repro_torch.models.config import ModelConfig
-from repro_torch.train import _tree
+from repro_torch import _tree
 
 __all__ = ["make_serve_step", "make_prefill_step", "ServeModel"]
 

@@ -34,7 +34,7 @@ buffer — the checkpoint-path extension of the device-level counters.
 
 The port of :mod:`repro.train.checkpoint`. Leaves are torch tensors (on any
 device) or numpy arrays, flattened in ``jax.tree_util``'s order
-(:mod:`repro_torch.train._tree`), so both packages write the same zones for
+(:mod:`repro_torch._tree`), so both packages write the same zones for
 the same tree. A restore returns tensors on the store's ``torch_device``
 (the card unless the caller passes ``"cpu"``): one host copy a leaf, then
 one host-to-device copy, counted in :attr:`ZonedCheckpointStore.h2d`; a
@@ -63,7 +63,7 @@ from repro_torch.core.csd import CopyCounter
 from repro_torch.telemetry import trace as _trace
 from repro_torch.telemetry.events import Severity as _Sev, publish as _publish_event
 from repro_torch.telemetry.metrics import MetricsRegistry, StatsView
-from repro_torch.train import _tree
+from repro_torch import _tree
 from repro_torch.zns import CompletionBarrier, IoFuture, ZonedDevice, ZoneState
 
 __all__ = ["ZonedCheckpointStore", "CheckpointError", "CheckpointTicket"]

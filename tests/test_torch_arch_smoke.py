@@ -1,14 +1,15 @@
 """The reference's per-architecture smoke tests (``tests/test_arch_smoke.py``)
 run on the port, on ``device="cpu"``, at the reference's sizes and bounds.
 
-The cases are the reference's: forward shapes and finiteness, two decode
-steps, token-by-token decode against the teacher-forced forward (float32,
-``rtol = atol = 2e-3``), prefill then decode against forward (``5e-3``),
-and the published parameter counts (the reference's function itself, run
-against ``repro_torch.configs``). The weights are the port's own
-``init_params``. ``test_one_train_step`` waits for the training slice.
+The cases are the reference's: forward shapes and finiteness, one SGD
+step on ``loss_fn``'s gradient, two decode steps, token-by-token decode
+against the teacher-forced forward (float32, ``rtol = atol = 2e-3``),
+prefill then decode against forward (``5e-3``), and the published
+parameter counts (the reference's function itself, run against
+``repro_torch.configs``). The weights are the port's own ``init_params``.
 """
 import ast
+import math
 from dataclasses import replace
 from pathlib import Path
 
@@ -20,7 +21,8 @@ from repro_torch.models import cache_specs, decode_step, forward, init_params, p
 from repro_torch.models.api import make_batch
 from repro_torch.models.params import ParamSpec
 from repro_torch.serve.step import make_prefill_step
-from repro_torch.train import _tree
+from repro_torch import _tree
+from repro_torch.train.step import loss_and_grads
 
 BATCH, SEQ = 2, 64
 DECODE_CONSISTENCY_ARCHS = [
@@ -69,6 +71,22 @@ def test_forward_shapes_and_finite(arch_id, setups):
     assert logits.shape == (BATCH, SEQ, cfg.vocab_size)
     assert torch.isfinite(logits.float()).all(), f"{arch_id}: NaN/Inf"
     assert torch.isfinite(aux)
+
+
+@pytest.mark.parametrize("arch_id", ARCH_IDS)
+def test_one_train_step(arch_id, setups):
+    cfg, params = setups(arch_id)
+    batch = make_batch(cfg, BATCH, SEQ, seed=1, device="cpu")
+    loss, _, grads = loss_and_grads(cfg, params, batch)
+    leaves, treedef = _tree.flatten(params)
+    new_params = _tree.unflatten(treedef, [w - 1e-3 * g.to(w.dtype)
+                                           for w, g in zip(leaves, grads)])
+    assert torch.isfinite(loss), f"{arch_id}: loss not finite"
+    # params actually changed
+    changed = [bool((a != b).any()) for a, b in zip(leaves, _tree.leaves(new_params))]
+    assert any(changed)
+    # loss is in a sane range for random init (~ln V)
+    assert 0.1 < float(loss) < 3 * math.log(cfg.vocab_size)
 
 
 @pytest.mark.parametrize("arch_id", ARCH_IDS)

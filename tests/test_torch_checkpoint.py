@@ -31,7 +31,7 @@ from repro.zns import ZonedDevice as RefZoned
 from repro_torch.faults import FaultInjector, FaultSpec, RetryPolicy
 from repro_torch.train import (CheckpointError, ZonedCheckpointStore,
                                tree_from_numpy)
-from repro_torch.train import _tree as ptree
+from repro_torch import _tree as ptree
 from repro_torch.zns import ZonedDevice
 
 BLOCK = 4096

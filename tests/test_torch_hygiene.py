@@ -22,7 +22,9 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.zns",
            "repro_torch.kernels.zone_filter", "repro_torch.kernels.paged_attn",
            "repro_torch.serve", "repro_torch.array", "repro_torch.telemetry",
            "repro_torch.data", "repro_torch.train", "repro_torch.faults.crash",
-           "repro_torch.models", "repro_torch.configs", "repro_torch.serve.step"]
+           "repro_torch.models", "repro_torch.configs", "repro_torch.serve.step",
+           "repro_torch.train.optimizer", "repro_torch.train.step",
+           "repro_torch.train.trainer", "repro_torch.launch.train"]
 
 
 def test_port_import_leaves_jax_and_repro_out():

@@ -45,7 +45,7 @@ from repro_torch.models import init_params, loss_fn, moe, param_specs, rglru, ss
 from repro_torch.models import transformer
 from repro_torch.models.api import make_batch
 from repro_torch.models.params import ParamSpec, load_reference_params
-from repro_torch.train import _tree
+from repro_torch import _tree
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DTYPES = list(TOL)

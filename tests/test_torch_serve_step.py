@@ -40,7 +40,7 @@ from repro_torch.models.api import (decode_input_specs, make_batch, make_decode_
                                     train_input_specs)
 from repro_torch.models.params import ParamSpec, load_reference_params, spec_tree_paths
 from repro_torch.serve import ServeModel, make_prefill_step, make_serve_step
-from repro_torch.train import _tree
+from repro_torch import _tree
 
 B, L, NEW = 2, 16, 5
 DECODE_CONSISTENCY_ARCHS = [          # tests/test_arch_smoke.py
