@@ -20,9 +20,11 @@ Phases, one JSON line each; any failed phase exits non-zero:
             paged_attn: the reference tests' geometries, every attention
             geometry of src/repro/configs, one geometry of several splits
             and the granite-8b pool, in float32 and bfloat16 (within
-            PAGED_TOL), on random tables with -1 tails, ragged and full
-            lengths, a length-0 row, an all -1 row, a -1 hole, and rows at
-            the kernel's split boundaries.
+            PAGED_TOL), each at kernel.py::plan's split and at one split a
+            row, on random tables with -1 tails, ragged and full lengths, a
+            length-0 row, an all -1 row, a -1 hole, and rows at the
+            kernel's split boundaries; each plan's shared memory against
+            the kernel's own.
   offload   the paper's Figure 2 offload through NvmCsd: one 256 MiB zone of
             random int32, count > RAND_MAX/2, on the kernel and jit tiers
             (interp on a 4 MiB zone); launch counts read around the run
@@ -94,7 +96,9 @@ Phases, one JSON line each; any failed phase exits non-zero:
             does not replay the pipeline, which must differ. No kernel of
             the port runs
   timing    kernel, plain-version and library times on the card (CUDA events),
-            with the device kernels one call runs
+            with the device kernels one call runs; the paged row with its
+            plan (splits, CTAs, shared memory) and the registers and spills
+            of the paged_partial instance it runs
 
 Then the ``nvidia-smi`` line, the kernel table as one JSON object, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -140,9 +144,10 @@ CONFIG_GEOMETRIES = ((32, 8, 128), (24, 2, 128), (32, 8, 80), (16, 1, 256),
 # (B, H, KV, hd, NZ, ZL, MZ) of tests/test_kernels.py:145-149
 TEST_GEOMETRIES = ((1, 4, 4, 32, 4, 16, 2), (2, 8, 2, 64, 8, 32, 3),
                    (4, 8, 1, 128, 16, 128, 4))
-# every geometry above is one split of the kernel (kernel.py::split_layout);
-# this one has three at a small ZL (16 zones a split), so the small head
-# widths and the edge rows reach the combine as the granite pool's 32 do
+# every geometry above is one split of the kernel (kernel.py::plan: a split
+# holds at least 256 slots); this one has three at a small ZL (16 zones a
+# split), so the small head widths and the edge rows reach the combine as
+# the granite pool's do
 SPLIT_GEOMETRY = (8, 8, 2, 64, 64, 16, 48)
 EDGE_ROWS = 8                   # paged_tables(edges=True) sets rows 0..7
 # granite-8b (src/repro/configs/granite_8b.py) in its compute dtype, bf16:
@@ -485,6 +490,7 @@ def phase_build(kernel_modules, _build):
     emit("build", load_seconds=wall, sources=sources)
     bad = [m.SOURCE.name for m, err in zip(kernel_modules, failures) if err is not None]
     check(not bad, f"build failed: {bad}")
+    return sources
 
 
 def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref):
@@ -629,8 +635,10 @@ def paged_close(torch, got, want):
 
 def paged_attention_checks(torch, pa_kernel, pa_ref, failures):
     """The kernel against ref.py on the card: ({dtype: max_abs_err},
-    {dtype: largest share of the limit}, checks). float32 references run
-    with TF32 off, so their einsums are float32."""
+    {dtype: largest share of the limit}, checks). Every case runs at the
+    split kernel.py::plan picks and at S = 1 (one split a row), and its
+    plan's shared memory is held against the kernel's own (pa_smem_bytes).
+    float32 references run with TF32 off, so their einsums are float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cases = []                                      # (label, B, H, KV, hd, NZ, ZL, MZ, edges)
@@ -639,6 +647,9 @@ def paged_attention_checks(torch, pa_kernel, pa_ref, failures):
         cases.append((f"test {H}/{KV}/{hd} edges", EDGE_ROWS, H, KV, hd, NZ, ZL, MZ, True))
     for H, KV, hd in CONFIG_GEOMETRIES:
         cases.append((f"config {H}/{KV}/{hd}", EDGE_ROWS, H, KV, hd, 64, 16, 6, True))
+    # 64 query heads on one KV head: more columns than a CTA's 8 consumer
+    # warps, so each sequence's heads are cut over 2 CTAs
+    cases.append(("wide group 64/1/64", EDGE_ROWS, 64, 1, 64, 64, 16, 6, True))
     B, H, KV, hd, NZ, ZL, MZ = SPLIT_GEOMETRY
     cases.append((f"splits {H}/{KV}/{hd}", B, H, KV, hd, NZ, ZL, MZ, False))
     cases.append((f"splits {H}/{KV}/{hd} edges", B, H, KV, hd, NZ, ZL, MZ, True))
@@ -648,20 +659,31 @@ def paged_attention_checks(torch, pa_kernel, pa_ref, failures):
     errs = {"float32": 0.0, "bfloat16": 0.0}
     shares = dict(errs)
     n = 0
-    for i, (label, *dims, edges) in enumerate(cases):
-        zps = pa_kernel.split_layout(dims[6], dims[5])[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = pa_kernel.load()
+    for i, (label, B, H, KV, hd, NZ, ZL, MZ, edges) in enumerate(cases):
         for dtype in PAGED_TOL:
-            q, k, v, tab, lengths = paged_inputs(torch, *dims, dtype, seed=500 + i,
-                                                 edges=edges, zps=zps)
-            got = pa_kernel.paged_attention_kernel(q, k, v, tab, lengths)
+            itemsize = 4 if dtype == "float32" else 2
+            plan = pa_kernel.plan(B, H, KV, hd, MZ, ZL, itemsize, sms)
+            c_smem = lib.pa_smem_bytes(int(dtype == "bfloat16"), H, KV, hd, plan.kv_chunk,
+                                       plan.head_groups, plan.stage_tokens, plan.stages)
+            if c_smem != plan.smem:
+                failures.append(f"paged_attention {label} {dtype}: plan's shared memory "
+                                f"{plan.smem}, the kernel's {c_smem}")
+            q, k, v, tab, lengths = paged_inputs(torch, B, H, KV, hd, NZ, ZL, MZ, dtype,
+                                                 seed=500 + i, edges=edges,
+                                                 zps=plan.zones_per_split)
             want = pa_ref.paged_attention_ref(q, k, v, tab, lengths)
-            n += 1
-            ok, err, share = paged_close(torch, got, want)
-            errs[dtype] = max(errs[dtype], err)
-            shares[dtype] = max(shares[dtype], share)
-            if not ok:
-                failures.append(f"paged_attention {label} {dtype}: max_abs_err {err}, "
-                                f"{share} of the limit")
+            for zps in sorted({plan.zones_per_split, MZ}):
+                got = pa_kernel.paged_attention_kernel(q, k, v, tab, lengths,
+                                                       zones_per_split=zps)
+                n += 1
+                ok, err, share = paged_close(torch, got, want)
+                errs[dtype] = max(errs[dtype], err)
+                shares[dtype] = max(shares[dtype], share)
+                if not ok:
+                    failures.append(f"paged_attention {label} {dtype} S={-(-MZ // zps)}: "
+                                    f"max_abs_err {err}, {share} of the limit")
             del q, k, v, got, want
     torch.cuda.empty_cache()
     return errs, shares, n
@@ -2263,13 +2285,16 @@ def clocks():
     return out.stdout.strip()
 
 
-def paged_timing(torch, pa_kernel, pa_ref):
+def paged_timing(torch, pa_kernel, pa_ref, build):
     """The paged_attention row at granite-8b width: B=64, H/KV/hd =
     32/8/128, bf16, a 4,096 x 128-token pool, MZ=64, every sequence 4,096
     tokens long in 32 distinct zones, then -1. The library yardstick is one
     scaled_dot_product_attention call (enable_gqa, boolean mask) over a
     cache gathered beforehand into a contiguous [B, KV, S, hd]; the SDPA
-    call is timed alone and the gather beside it."""
+    call is timed alone and the gather beside it. Beside the times: the
+    plan (kernel.py::plan) and the registers and spills ptxas gave the
+    paged_partial instance this shape runs (``build``: phase_build's
+    report)."""
     import torch.nn.functional as F
     B, H, KV, hd = 64, GRANITE_HEADS, GRANITE["kv_heads"], GRANITE["head_dim"]
     NZ, ZL, MZ = GRANITE["num_zones"], GRANITE["zone_len"], GRANITE["max_zones_per_seq"]
@@ -2318,6 +2343,21 @@ def paged_timing(torch, pa_kernel, pa_ref):
     k_t, p_t = measure(torch, kernel), measure(torch, plain, reps=5)
     gather_ms = cuda_ms(torch, gather, reps=5)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
+    plan = pa_kernel.plan(B, H, KV, hd, MZ, ZL, k.element_size(),
+                          torch.cuda.get_device_properties(0).multi_processor_count)
+    held = (tab >= 0).nonzero().tolist()            # (sequence, zone) of every valid zone
+    used_splits = len({(b, z // plan.zones_per_split) for b, z in held})
+    # the instance csrc/paged_attn.cu::launch_upl picks: units of hd a lane
+    # holds in the logits, tensor cores for bf16 with 16-token stages
+    units = hd * k.element_size() // 16
+    upl = 1
+    while upl * 8 < units:
+        upl *= 2
+    mma = int(plan.stage_tokens == 16 and hd % 16 == 0)
+    key = f"13paged_partialI13__nv_bfloat16Li{upl}ELb{mma}"
+    paged = build["paged_attn"]
+    partial = dict(registers=paged["registers_by_kernel"].get(key),
+                   spill_store_bytes=paged["spill_store_bytes"].get(key, 0), ptxas_name=key)
     row = dict(ms=k_t["ms"], device_ms=k_t["device_ms"], host_us=k_t["host_us"],
                device_kernels=k_t["device_kernels"],
                device_launches_per_call=k_t["device_launches_per_call"],
@@ -2330,13 +2370,17 @@ def paged_timing(torch, pa_kernel, pa_ref):
                bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
                share_of_bound=b_ms / k_t["ms"], bytes=n_bytes, operations=n_ops,
                achieved_tb_per_s=n_bytes / k_t["ms"] / 1e9,
-               shape=dict(B=B, H=H, KV=KV, hd=hd, NZ=NZ, ZL=ZL, MZ=MZ, length=length))
+               shape=dict(B=B, H=H, KV=KV, hd=hd, NZ=NZ, ZL=ZL, MZ=MZ, length=length),
+               splits=plan.splits, zones_per_split=plan.zones_per_split, ctas=plan.ctas,
+               ctas_reading_tokens=used_splits * plan.ctas // (B * plan.splits),
+               dynamic_smem_bytes=plan.smem, stage_tokens=plan.stage_tokens,
+               stages=plan.stages, kv_heads_a_cta=plan.kv_chunk, paged_partial=partial)
     del k, v, kc, vc
     torch.cuda.empty_cache()
     return row
 
 
-def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref):
+def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref, build):
     """Times at the main path's shape, on a zone already on the card. ``ms``
     is CUDA events around 20 back-to-back calls; ``device_ms`` what the
     profiler saw on the card per call; ``host_us`` the enqueue cost."""
@@ -2384,7 +2428,7 @@ def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref):
                          bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
                          share_of_bound=b_ms / k["ms"], shape=list(pages.shape))
     copy_ms = measure(torch, lambda: x.clone())            # a plain 256 MiB read+write
-    out["paged_attention"] = paged_timing(torch, pa_kernel, pa_ref)
+    out["paged_attention"] = paged_timing(torch, pa_kernel, pa_ref, build)
     emit("timing", shape=list(data.reshape(-1, 1024).shape), h2d_event_ms=h2d,
          h2d_gb_per_s=data.nbytes / h2d / 1e6, clone_256MiB=copy_ms,
          clocks_after=clocks(), **out)
@@ -2438,7 +2482,7 @@ def main():
     t_start = time.perf_counter()
     try:
         name, smi_line = phase_device(torch)
-        phase_build([zf_kernel, pa_kernel], _build)
+        build = phase_build([zf_kernel, pa_kernel], _build)
         errs = phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref)
         data, launches, csd_count = phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod,
                                                   zf_kernel)
@@ -2456,7 +2500,8 @@ def main():
         phase_model(torch, cfgs, models, api, serve_mod, tree_mod, counted, smi_line)
         phase_train(torch, cfgs, models, api, launch, step_mod, opt_mod, trainer_mod, train_mod,
                     tree_mod, ZonedDevice, counted, smi_line)
-        times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref)
+        times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref,
+                             build)
     except PhaseFailed as e:
         emit("failed", error=str(e))
         return 1

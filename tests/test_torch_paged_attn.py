@@ -216,12 +216,21 @@ def test_kernel_checks_accept_the_main_path_shapes():
 
 # ------------------------------------------------- the kernel's split algebra
 
-# (B, H, KV, hd, NZ, ZL, MZ) with several splits: split_layout gives 8 zones
-# a split, 3 splits, the last of them short
+# (B, H, KV, hd, NZ, ZL, MZ) with several splits: the kernel's plan gives 8
+# zones a split (256 slots), 3 splits, the last of them short
 SPLIT_GEOMETRY = (3, 8, 2, 32, 24, 32, 20)
 _NZ, _ZL, _MZ = SPLIT_GEOMETRY[4:]
-ZONES_PER_SPLIT = {"one": 1, "two": 2, "whole_row": _MZ,
-                   "split_layout": pa_kernel.split_layout(_MZ, _ZL)[0]}
+H100_SMS = 132
+# granite-8b's decode shapes (src/repro/configs/granite_8b.py; chip_smoke.py's
+# serve phase and its timing row): (B, H, KV, hd, MZ, ZL), bf16
+SERVE_SHAPE = (32, 32, 8, 128, 64, 128)
+TIMING_SHAPE = (64, 32, 8, 128, 64, 128)
+ZONES_PER_SPLIT = {
+    "one": 1, "two": 2, "whole_row": _MZ,
+    "split_layout": pa_kernel.plan(*SPLIT_GEOMETRY[:4], _MZ, _ZL, 4, H100_SMS).zones_per_split,
+    # the split plan() picks at the serve shape, on this table
+    "serve_plan": pa_kernel.plan(*SERVE_SHAPE, 2, H100_SMS).zones_per_split,
+}
 
 
 def _full_row(ztab, lengths):
@@ -310,6 +319,84 @@ def test_split_reference_matches_reference(edge, zps, dtype):
 
 
 def test_split_layout_at_granite_width():
-    """128-token zones, 64 a sequence: two zones (256 tokens) a split."""
-    assert pa_kernel.split_layout(64, 128) == (2, 32)
-    assert pa_kernel.split_layout(_MZ, _ZL) == (8, 3)
+    """plan() at granite width on an H100's 132 SMs: one CTA a sequence
+    (all 8 KV heads), 16 tokens a stage in bf16 (64 KiB of K and V), and
+    about 4 waves of CTAs at a full table: 8 zones a split for 64
+    sequences, 4 for the serve step's 32."""
+    timing = pa_kernel.plan(*TIMING_SHAPE, 2, H100_SMS)
+    assert (timing.kv_chunk, timing.head_groups, timing.stage_tokens) == (8, 1, 16)
+    assert (timing.zones_per_split, timing.splits, timing.ctas) == (8, 8, 512)
+    serve = pa_kernel.plan(*SERVE_SHAPE, 2, H100_SMS)
+    assert (serve.zones_per_split, serve.splits) == (4, 16)
+    assert pa_kernel.plan(*SPLIT_GEOMETRY[:4], _MZ, _ZL, 4, H100_SMS).splits == 3
+
+
+# chip_smoke.py::CONFIG_GEOMETRIES: (H, KV, hd) of every attention model in
+# src/repro/configs
+CONFIG_GEOMETRIES = ((32, 8, 128), (24, 2, 128), (32, 8, 80), (16, 1, 256),
+                     (16, 16, 64), (96, 8, 128), (16, 16, 128), (48, 8, 128))
+PLAN_SHAPES = {"timing": TIMING_SHAPE, "serve": SERVE_SHAPE,
+               **{f"config_{H}_{KV}_{hd}": (8, H, KV, hd, 64, 128)
+                  for H, KV, hd in CONFIG_GEOMETRIES},
+               "split_geometry": (*SPLIT_GEOMETRY[:4], _MZ, _ZL),
+               # more columns of 4 heads than a CTA's 8 consumer warps
+               "wide_group": (8, 64, 1, 64, 6, 16)}
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 4])
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+def test_plan_splits_cover_every_zone_once(shape, itemsize, sms):
+    """S >= 1 splits of zps zones; each zone of the table in exactly one."""
+    B, H, KV, hd, MZ, ZL = PLAN_SHAPES[shape]
+    p = pa_kernel.plan(B, H, KV, hd, MZ, ZL, itemsize, sms)
+    assert p.splits >= 1 and 1 <= p.zones_per_split <= MZ
+    assert p.splits == -(-MZ // p.zones_per_split)
+    owner = [z // p.zones_per_split for z in range(MZ)]
+    assert sorted(set(owner)) == list(range(p.splits))       # no split is empty
+    seen = [0] * MZ
+    for s in range(p.splits):
+        for z in range(s * p.zones_per_split, min((s + 1) * p.zones_per_split, MZ)):
+            seen[z] += 1
+    assert seen == [1] * MZ
+    assert p.zones_per_split * ZL >= min(MZ * ZL, pa_kernel.MIN_SPLIT_TOKENS)
+    per_seq = p.ctas // (B * p.splits)
+    assert per_seq * B * p.splits == p.ctas and per_seq >= 1
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 4])
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+def test_plan_takes_one_split_where_the_grid_fills_the_card(shape, itemsize, sms):
+    """With enough sequences for more than two waves of CTAs, S = 1; with
+    fewer, the split keeps about WAVES waves at a full table."""
+    _, H, KV, hd, MZ, ZL = PLAN_SHAPES[shape]
+    one = pa_kernel.plan(1, H, KV, hd, MZ, ZL, itemsize, sms)
+    per_seq = one.ctas // one.splits
+    B = -(-2 * sms // per_seq) + 1                             # > 2 waves alone
+    assert pa_kernel.plan(B, H, KV, hd, MZ, ZL, itemsize, sms).splits == 1
+    p = pa_kernel.plan(*PLAN_SHAPES[shape], itemsize, sms)
+    rows = p.ctas // p.splits
+    if rows * 2 < sms * pa_kernel.WAVES and p.zones_per_split * ZL > pa_kernel.MIN_SPLIT_TOKENS:
+        assert p.ctas >= sms * pa_kernel.WAVES // 2
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+def test_stage_plan_fits_a_block(shape, itemsize):
+    """The ring of at least 3 stages, each at least one token, fits the
+    232,448 bytes a block may use; every bulk copy (a run of 1 to
+    stage_tokens rows) is a multiple of 16 bytes; the CTA's columns fit its
+    consumer warps, one each."""
+    B, H, KV, hd, MZ, ZL = PLAN_SHAPES[shape]
+    p = pa_kernel.plan(B, H, KV, hd, MZ, ZL, itemsize, H100_SMS)
+    assert p.stages >= 3 and 1 <= p.stage_tokens <= pa_kernel.MAX_STAGE_TOKENS
+    ring = p.stages * 2 * p.stage_tokens * p.row_bytes
+    assert ring <= p.smem <= pa_kernel.SMEM_LIMIT == 232_448
+    assert p.row_bytes == p.kv_chunk * hd * itemsize
+    assert all(n * p.row_bytes % 16 == 0 for n in range(1, p.stage_tokens + 1))
+    assert KV % p.kv_chunk == 0
+    G = H // KV
+    assert -(-G // pa_kernel.HEADS_A_COLUMN) % p.head_groups == 0
+    assert p.kv_chunk * p.head_groups <= pa_kernel.CONSUMER_WARPS
+    assert p.smem == pa_kernel.smem_bytes(hd, itemsize, p.kv_chunk, p.stage_tokens, p.stages)
