@@ -16,7 +16,14 @@ Phases, one JSON line each; any failed phase exits non-zero:
             Batched rows at 8 x 2,048 pages (float sums within rtol 1e-5
             of each row's sum) and at the array's 512 x 64 (of each row's
             summed magnitudes: a 65,536-value row of mixed signs may sum
-            near zero).
+            near zero). Float sums bit for bit at the 256 KiB chunk and the
+            256 MiB zone, bare and through a program: a single launch, a
+            batched row, repeats and two streams at once, one launch a
+            wrapper call; rows of the array's 512 x 64 dispatch (4 fold
+            blocks a CUDA block) against each chunk alone; planted faults
+            must fail that check: a stale ticket (no block folds) and a
+            ticket one short of the block count (the first block to arrive
+            folds before the other partials are in: a finite wrong sum).
             paged_attn: the reference tests' geometries, every attention
             geometry of src/repro/configs, one geometry of several splits
             and the granite-8b pool, in float32 and bfloat16 (within
@@ -96,9 +103,12 @@ Phases, one JSON line each; any failed phase exits non-zero:
             does not replay the pipeline, which must differ. No kernel of
             the port runs
   timing    kernel, plain-version and library times on the card (CUDA events),
-            with the device kernels one call runs; the paged row with its
-            plan (splits, CTAs, shared memory) and the registers and spills
-            of the paged_partial instance it runs
+            with the device kernels one call runs and their launches a call
+            (torch.profiler; 1 for a zone-filter row, 2 for the paged row,
+            held); the paged row with its plan (splits, CTAs, shared
+            memory) and the registers and spills of the paged_partial
+            instance it runs. It runs right after the build: torch.profiler
+            sees every kernel early in a process, not late (profiled_ms)
 
 Then the ``nvidia-smi`` line, the kernel table as one JSON object, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -555,17 +565,151 @@ def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref):
         errs["filtered_reduce_batched"] = max(errs["filtered_reduce_batched"], err)
         if not ok:
             failures.append(f"batched {name}@{shape} vs plain: {rows} vs {want}")
+    identity = zone_filter_identity(torch, tp, zf_kernel, zf_ops, failures)
+    n_checks += identity["checks"]
     paged_errs, paged_shares, paged_checks = paged_attention_checks(
         torch, pa_kernel, pa_ref, failures)
     errs["paged_attention"] = max(paged_errs.values())
     n_checks += paged_checks
     torch.cuda.synchronize()
-    emit("kernels", checks=n_checks, paged_attention_checks=paged_checks,
+    emit("kernels", checks=n_checks, zone_filter_bit_identity=identity,
+         paged_attention_checks=paged_checks,
          paged_attention_max_abs_err=paged_errs,
          paged_attention_share_of_limit=paged_shares, failures=failures[:10],
          n_failures=len(failures), max_abs_err=errs)
     check(not failures, f"{len(failures)} kernel checks disagree with the plain version")
     return errs
+
+
+def same_bits(torch, a, b):
+    """Whether two float32 results are the same bits."""
+    return torch.equal(a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32))
+
+
+def raw_filtered_reduce(torch, zf_kernel, x, ops, imms, bpc, ticket, partials):
+    """One launch of ``zone_filter.cu`` over the float32 zone ``x`` (kind
+    sum) through its C entry, with the partials ``partials`` (``bpc`` int64
+    slots) and a ticket of its own that starts at ``ticket``; the result
+    starts as NaN. Only the planted faults use it."""
+    tickets = torch.full((1,), ticket, dtype=torch.int32, device=DEVICE)
+    out = torch.full((), float("nan"), dtype=torch.float32, device=DEVICE)
+    n = 0 if ops is None else ops.numel()
+    err = zf_kernel.load().zf_filtered_reduce(
+        3, 1, x.data_ptr(), 1, x.numel(), 0 if ops is None else ops.data_ptr(),
+        0 if ops is None else imms.data_ptr(), n, partials.data_ptr(), tickets.data_ptr(),
+        bpc, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"planted launch failed: cudaError {err}")
+    return out
+
+
+def zone_filter_identity(torch, tp, zf_kernel, zf_ops, failures):
+    """Float sums of ``zone_filter.cu`` bit for bit, at the 256 KiB chunk
+    and the 256 MiB zone, bare and through a program: a single launch, the
+    same chunk as a row of a batched launch of two, repeated calls (each
+    leaves its tickets at 0 for the next) and the chunk on two streams at
+    once (held back behind a sleep on each stream, so that their launches
+    overlap on the card); then rows of a batched launch at the array's
+    dispatch shape, 512 chunks of 64 pages, where a CUDA block runs 4 fold
+    blocks (bpc 32 one-tile fold blocks a chunk and 512 chunks:
+    zone_filter.cu::launch groups them by 4), each against its chunk
+    alone. Every wrapper call must be one launch. Then, after the counted
+    calls, planted faults that the bit check must reject, each one launch
+    through the C entry: a ticket left at the block count, as a launch
+    without the reset would leave it (no block folds; the result stays
+    NaN); and, at the zone, a ticket one short of the block count over the
+    partials a launch on other data left, so that the first block to
+    arrive folds while most partials are stale (its 1,024 blocks do not
+    fit on the card at once, so the second wave has not started): a finite
+    wrong sum. A fold in another order is no planted fault: it gives the
+    same float bits too often (3 of 4 cases with half the blocks, on an
+    H100)."""
+    scaled = tp.Program("float32", (tp.Instruction(tp.OpCode.MUL, 2.0),
+                                    tp.Instruction(tp.OpCode.CMP_GE, 10.0),
+                                    tp.Instruction(tp.OpCode.RED_SUM)), name="scaled_sum")
+    programs_ = {"bare": (None, None), "scaled_sum": zf_ops.encode_program(scaled, DEVICE)}
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    rows, planted, checks = {}, {}, 0
+
+    def counts():
+        return zf_kernel.filtered_reduce.launches, zf_kernel.filtered_reduce_batched.launches
+
+    def held(key, runs, single, n0, calls, **extra):
+        nonlocal checks
+        n1 = counts()
+        bad = [k for k, r in runs.items() if not same_bits(torch, r, single)]
+        checks += len(runs) + 1
+        if bad:
+            failures.append(f"bit identity {key}: {bad} differ from the single launch")
+        if (n1[0] - n0[0], n1[1] - n0[1]) != calls:
+            failures.append(f"bit identity {key}: {n1[0] - n0[0]} single and "
+                            f"{n1[1] - n0[1]} batched launches for {calls} calls")
+        rows[key] = dict(runs=len(runs), differing=bad, **extra)
+
+    def plant(key, x, single, ops, imms, bpc, ticket, partials, what):
+        nonlocal checks
+        got = raw_filtered_reduce(torch, zf_kernel, x, ops, imms, bpc, ticket, partials)
+        caught = not same_bits(torch, got, single)
+        finite = bool(torch.isfinite(got))
+        planted[f"{what}:{key}"] = dict(value=float(got), finite=finite, caught=caught)
+        checks += 1
+        if not caught:
+            failures.append(f"the bit-identity check passed {what} at {key}")
+        return finite
+
+    for n_pages in (ARRAY_STRIPE, ZONE_BYTES // PAGE_BYTES):
+        x = card_pages(torch, "float32", n_pages, seed=500 + n_pages)
+        batch = torch.stack([card_pages(torch, "float32", n_pages, seed=501), x])
+        y = x.clone()
+        bpc = zf_kernel.blocks_per_chunk(x.numel(), 4)
+        for pname, (ops, imms) in programs_.items():
+            def call(t, ops=ops, imms=imms):
+                return zf_kernel.filtered_reduce(t, kind="sum", ops=ops, imms=imms)
+            n0 = counts()
+            single = call(x)
+            runs = {"batched_row": zf_kernel.filtered_reduce_batched(
+                batch, kind="sum", ops=ops, imms=imms)[1]}
+            for r in range(3):
+                runs[f"repeat_{r}"] = call(x)
+            torch.cuda.synchronize()
+            for s in (s1, s2):
+                s.wait_stream(torch.cuda.current_stream())
+            streamed = []
+            for s in (s1, s2):
+                with torch.cuda.stream(s):
+                    torch.cuda._sleep(2_000_000)     # about 1 ms: both queues fill first
+            for _ in range(4):
+                for s, t in ((s1, x), (s2, y)):
+                    with torch.cuda.stream(s):
+                        streamed.append(call(t))
+            torch.cuda.synchronize()
+            runs.update({f"stream{i % 2 + 1}_{i // 2}": r for i, r in enumerate(streamed)})
+            key = f"{pname}@{n_pages}"
+            held(key, runs, single, n0, (1 + 3 + len(streamed), 1), value=float(single),
+                 blocks_per_chunk=bpc)
+            # the planted faults, after the counted calls
+            partials = torch.empty(bpc, dtype=torch.int64, device=DEVICE)
+            plant(key, x, single, ops, imms, bpc, bpc, partials, "a ticket left at bpc")
+            if n_pages == ARRAY_STRIPE:
+                continue
+            raw_filtered_reduce(torch, zf_kernel, batch[0], ops, imms, bpc, 0, partials)
+            if not plant(key, x, single, ops, imms, bpc, bpc - 1, partials,
+                         "a ticket at bpc - 1"):
+                failures.append(f"the early fold at {key} gave no finite sum")
+        del x, y, batch
+    # the array's dispatch shape: 4 fold blocks a CUDA block
+    chunks, pages = BATCH_SHAPES[1]
+    xb = card_pages(torch, "float32", chunks * pages, seed=502).reshape(chunks, pages, -1)
+    picked = (0, 1, chunks // 2 + 1, chunks - 1)
+    for pname, (ops, imms) in programs_.items():
+        n0 = counts()
+        got = zf_kernel.filtered_reduce_batched(xb, kind="sum", ops=ops, imms=imms)
+        for i in picked:
+            single = zf_kernel.filtered_reduce(xb[i], kind="sum", ops=ops, imms=imms)
+            held(f"{pname}@batched_{chunks}x{pages}_row{i}", {"batched_row": got[i]}, single,
+                 n0, (picked.index(i) + 1, 1), value=float(single))
+    del xb
+    torch.cuda.empty_cache()
+    return dict(checks=checks, rows=rows, planted_faults=planted)
 
 
 # ------------------------------------------------------------ paged_attn
@@ -1541,9 +1685,9 @@ def granite_serve(torch, cfgs, models, api, serve_mod, tree_mod):
     cache = models.init_params(models.cache_specs(cfg, B, L + N), 0, DEVICE)
     step_tokens = tokens[:, :1].contiguous()
     prefill_dev, prefill_kernels, prefill_launches = profiled_ms(
-        torch, lambda: model.prefill(batch), reps=1)
+        torch, lambda: model.prefill(batch), reps=1, warmup=1)
     step_dev, step_kernels, step_launches = profiled_ms(
-        torch, lambda: model.decode(cache, step_tokens, L), reps=3)
+        torch, lambda: model.decode(cache, step_tokens, L), reps=3, warmup=1)
     profile = dict(prefill_device_ms=prefill_dev, prefill_launches=prefill_launches,
                    prefill_top_kernels_ms=top(prefill_kernels),
                    decode_step_device_ms=step_dev, decode_step_launches=step_launches,
@@ -1853,7 +1997,7 @@ def train_main_run(torch, launch, models, step_mod, opt_mod, tree_mod):
     mets = []
     t = time.perf_counter()
     dev_ms, kernels, launches = profiled_ms(
-        torch, lambda: mets.append(one_step(trainer.state, batch)[1]), reps=1, warm=False)
+        torch, lambda: mets.append(one_step(trainer.state, batch)[1]), reps=1, warmup=0)
     profile_s = time.perf_counter() - t
     with torch.no_grad():
         after = float(models.loss_fn(cfg, trainer.state["params"], batch)[0])
@@ -2232,50 +2376,70 @@ def phase_train(torch, cfgs, models, api, launch, step_mod, opt_mod, trainer_mod
          seconds=time.perf_counter() - t_phase)
 
 
-def profiled_ms(torch, fn, reps=10, warm=True):
+def profiled_ms(torch, fn, reps=10, warmup=3, tries=1):
     """(device ms per call, {kernel name: its device ms per call}, device
     launches per call) from torch.profiler: the summed device time of what
     one call runs on the card; (None, {}, None) when the profiler records
-    no device time. ``warm``: one call before the profiled ones."""
-    from torch.profiler import ProfilerActivity, profile
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    no device time. ``warmup`` calls run first, in a step the profiler
+    records and drops; with ``warmup=0`` the profiler keeps every call (a
+    train step that must run once). The profiler can miss kernels: a
+    session's first ones without the warm-up step, and late in a process
+    even with it (which made earlier runs see 1.3 of a paged call's 2
+    launches; so the timing phase runs right after the build), and now and
+    then a whole session (on an H100, once in the first half minute of a
+    process). A miss only lowers the count,
+    so of ``tries`` sessions the one that saw the most kernels is kept."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    best = (None, {}, None)
+    for _ in range(tries):
         torch.cuda.synchronize()
-    total_us, names, count = 0.0, {}, 0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            total_us += us
-            names[e.key[:60]] = us / reps / 1e3
-            count += e.count
-    if not total_us:
-        return None, {}, None
-    return total_us / reps / 1e3, names, count / reps
+        steps = (warmup, reps) if warmup else (reps,)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1) if warmup
+                     else None) as prof:
+            for n in steps:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                if warmup:
+                    prof.step()
+        total_us, names, count = 0.0, {}, 0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            if us > 0:
+                total_us += us
+                names[e.key[:60]] = us / reps / 1e3
+                count += e.count
+        if total_us and (best[2] is None or count / reps > best[2]):
+            best = (total_us / reps / 1e3, names, count / reps)
+    return best
 
 
-def host_us(torch, fn, reps=50):
-    """Host time to enqueue one call (no synchronisation inside)."""
+def host_us(torch, fn, reps=50, batches=5):
+    """Host time to enqueue one call (no synchronisation inside), µs, as
+    (the median of ``batches`` means of ``reps`` calls, so that one stall
+    of the machine's shared host does not set it; the mean of all the
+    calls, as one batch's mean is)."""
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) / reps * 1e6
+    means = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        means.append((t1 - t0) / reps * 1e6)
+    return statistics.median(means), statistics.fmean(means)
 
 
 def measure(torch, fn, reps=20):
-    dev_ms, names, per_call = profiled_ms(torch, fn)
-    return dict(ms=cuda_ms(torch, fn, reps=reps), device_ms=dev_ms,
-                host_us=host_us(torch, fn), device_kernels=names,
-                device_launches_per_call=per_call)
+    ms, (host, host_mean) = cuda_ms(torch, fn, reps=reps), host_us(torch, fn)
+    dev_ms, names, per_call = profiled_ms(torch, fn, tries=3)
+    return dict(ms=ms, device_ms=dev_ms, host_us=host, host_us_mean=host_mean,
+                device_kernels=names, device_launches_per_call=per_call)
 
 
 def clocks():
@@ -2359,7 +2523,7 @@ def paged_timing(torch, pa_kernel, pa_ref, build):
     partial = dict(registers=paged["registers_by_kernel"].get(key),
                    spill_store_bytes=paged["spill_store_bytes"].get(key, 0), ptxas_name=key)
     row = dict(ms=k_t["ms"], device_ms=k_t["device_ms"], host_us=k_t["host_us"],
-               device_kernels=k_t["device_kernels"],
+               host_us_mean=k_t["host_us_mean"], device_kernels=k_t["device_kernels"],
                device_launches_per_call=k_t["device_launches_per_call"],
                plain_ms=p_t["ms"], plain_device_ms=p_t["device_ms"],
                library_ms=lib["ms"] if lib else None,
@@ -2383,7 +2547,9 @@ def paged_timing(torch, pa_kernel, pa_ref, build):
 def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref, build):
     """Times at the main path's shape, on a zone already on the card. ``ms``
     is CUDA events around 20 back-to-back calls; ``device_ms`` what the
-    profiler saw on the card per call; ``host_us`` the enqueue cost."""
+    profiler saw on the card per call; ``host_us`` the enqueue cost (the
+    median of 5 batches of 50 calls; ``host_us_mean`` the mean of all
+    250)."""
     program = tp.filter_count("int32", "gt", RAND_MAX // 2)
     ops, imms = zf_ops.encode_program(program, DEVICE)
     host = torch.from_numpy(data).pin_memory()
@@ -2421,7 +2587,7 @@ def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref, 
         n_bytes = pages.numel() * pages.element_size() + 4 * n_out
         b_ms, b_by = bound_ms(n_bytes, 2 * pages.numel())   # a compare and an add each
         out[name] = dict(ms=k["ms"], device_ms=k["device_ms"], host_us=k["host_us"],
-                         device_kernels=k["device_kernels"],
+                         host_us_mean=k["host_us_mean"], device_kernels=k["device_kernels"],
                          device_launches_per_call=k["device_launches_per_call"],
                          plain_ms=p["ms"], plain_device_ms=p["device_ms"],
                          library_ms=lib["ms"], library_device_ms=lib["device_ms"],
@@ -2432,6 +2598,9 @@ def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref, 
     emit("timing", shape=list(data.reshape(-1, 1024).shape), h2d_event_ms=h2d,
          h2d_gb_per_s=data.nbytes / h2d / 1e6, clone_256MiB=copy_ms,
          clocks_after=clocks(), **out)
+    seen = {name: row["device_launches_per_call"] for name, row in out.items()}
+    check(all(n == (2 if name == "paged_attention" else 1) for name, n in seen.items()),
+          f"device launches a call {seen}: one a zone-filter call, two a paged call")
     return out
 
 
@@ -2483,6 +2652,10 @@ def main():
     try:
         name, smi_line = phase_device(torch)
         build = phase_build([zf_kernel, pa_kernel], _build)
+        zone = np.random.default_rng(0).integers(0, RAND_MAX, ZONE_BYTES // 4, dtype=np.int32)
+        times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, zone, pa_kernel, pa_ref,
+                             build)       # the Figure 2 zone, as phase_offload draws it
+        del zone
         errs = phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref)
         data, launches, csd_count = phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod,
                                                   zf_kernel)
@@ -2500,8 +2673,7 @@ def main():
         phase_model(torch, cfgs, models, api, serve_mod, tree_mod, counted, smi_line)
         phase_train(torch, cfgs, models, api, launch, step_mod, opt_mod, trainer_mod, train_mod,
                     tree_mod, ZonedDevice, counted, smi_line)
-        times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref,
-                             build)
+        del data
     except PhaseFailed as e:
         emit("failed", error=str(e))
         return 1

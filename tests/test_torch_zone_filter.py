@@ -246,3 +246,77 @@ def test_blocks_per_chunk_depends_on_chunk_size_only():
     assert zf_kernel.blocks_per_chunk(2048 * 1024, 4) == 1024
     assert zf_kernel.blocks_per_chunk(64 * 1024, 4) == 32
     assert zf_kernel.blocks_per_chunk(10, 8) == 1
+
+
+def test_plan_is_checked_once_per_type_kind_and_shape():
+    """What a launch needs from the type, kind and shape alone: a 256 KiB
+    chunk alone and as a row of the array's [512, 64, 1024] dispatch fold
+    over the same blocks; bad types, kinds and shapes raise, and are not
+    remembered."""
+    def plan(*args):
+        return zf_kernel._plan(*args, "cpu")
+    chunk = plan(torch.int32, "count", torch.Size([64, 1024]), False)
+    assert (chunk.n_chunks, chunk.chunk_elems, chunk.bpc, chunk.out_like.shape,
+            chunk.out_like.dtype) == (1, 65536, 32, (), torch.int32)
+    rows = plan(torch.int32, "count", torch.Size([512, 64, 1024]), True)
+    assert (rows.n_chunks, rows.chunk_elems, rows.bpc, rows.out_like.shape) == (
+        512, 65536, 32, (512,))
+    assert plan(torch.float64, "sum", torch.Size([8, 1024]), False).out_like.dtype == torch.float32
+    assert plan(torch.uint32, "max", torch.Size([3]), False).out_like.dtype == torch.uint32
+    hits = zf_kernel._plan.cache_info().hits
+    plan(torch.int32, "count", torch.Size([64, 1024]), False)
+    assert zf_kernel._plan.cache_info().hits == hits + 1
+    for args, err in (((torch.float16, "count", torch.Size([4, 1024]), False), TypeError),
+                      ((torch.int32, "hist", torch.Size([4, 1024]), False), ValueError),
+                      ((torch.int32, "count", torch.Size([0, 4, 1024]), True), ValueError),
+                      ((torch.int32, "count", torch.Size([65536, 1, 4]), True), ValueError),
+                      ((torch.int32, "count", torch.Size([4, 0]), True), ValueError),
+                      ((torch.int32, "count", torch.Size([0, 1024]), False), ValueError),
+                      ((torch.int32, "count", torch.Size([]), True), ValueError)):
+        with pytest.raises(err):
+            plan(*args)
+
+
+def test_workspace_grows_to_the_largest_launch_and_is_kept_per_stream():
+    """Partials (one 8-byte slot a block) and tickets (one a chunk, zero)
+    for each (device, stream): a smaller launch reuses the pair, a larger
+    one replaces it with one that covers both, another stream or device
+    gets its own."""
+    ws = zf_kernel.Workspaces()
+    cpu = torch.device("cpu")
+    partials, tickets = ws.reserve(cpu, 7, n_chunks=4, bpc=32)
+    assert partials.dtype == torch.int64 and partials.numel() == 128
+    assert tickets.dtype == torch.int32 and tickets.tolist() == [0] * 4
+    again = ws.reserve(cpu, 7, n_chunks=2, bpc=8)
+    assert again[0] is partials and again[1] is tickets
+    wider = ws.reserve(cpu, 7, n_chunks=8, bpc=32)
+    assert wider[0].numel() == 256 and wider[1].tolist() == [0] * 8
+    deeper = ws.reserve(cpu, 7, n_chunks=1, bpc=1024)
+    assert deeper[0].numel() == 1024 and deeper[1].numel() == 8
+    assert ws.reserve(cpu, 7, n_chunks=8, bpc=128)[0] is deeper[0]
+    other = ws.reserve(cpu, 8, n_chunks=1, bpc=1)
+    assert other[0].numel() == 1 and other[1].numel() == 1
+    assert ws.reserve(cpu, 7, n_chunks=1, bpc=1)[0] is deeper[0]
+    meta = ws.reserve(torch.device("meta"), 7, n_chunks=1, bpc=1)
+    assert meta[0].device.type == "meta"
+
+
+def test_a_call_for_the_card_without_one_raises(monkeypatch):
+    """The kernel tier asked for the card where there is none raises
+    instead of running the plain version, and a tensor that is neither on
+    the CPU nor on a card is refused without counting a launch."""
+    prog = tp.filter_count("int32", "gt", 0)
+    pages = _pages("int32", seed=1, n_pages=4)
+    before = (zf_kernel.filtered_reduce.launches, zf_kernel.filtered_reduce_batched.launches)
+    for fn in (zf_kernel.filtered_reduce, zf_kernel.filtered_reduce_batched):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(torch.from_numpy(pages).to("meta").reshape(1, 4, PAGE_ELEMS))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: zf_ops.kernel_program(prog, 4, PAGE_ELEMS, device="cuda"),
+                 lambda: zf_ops.kernel_program_batched(prog, 1, 4, PAGE_ELEMS),
+                 lambda: zf_ops.run_program_kernel(prog, pages),
+                 lambda: zf_ops.run_program_kernel_batched(prog, pages[None])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert (zf_kernel.filtered_reduce.launches,
+            zf_kernel.filtered_reduce_batched.launches) == before
