@@ -102,6 +102,19 @@ Phases, one JSON line each; any failed phase exits non-zero:
             bit for bit under deterministic algorithms, and a resume that
             does not replay the pipeline, which must differ. No kernel of
             the port runs
+  mesh      the device mesh on a world-size-1 NCCL group and a 1 x 1
+            ("data", "model") DeviceMesh (make_local_mesh): h2o-danube-1.8b
+            at the train phase's shape, the sharded Trainer's first step
+            (every leaf handed to it a DTensor on the card) against the
+            unsharded one's (loss rtol 2e-2; every leaf within 5e-2
+            elementwise and of its norm; a scaled leaf must fail), a
+            second step profiled; granite-8b's decode, 8 steps over DTensor
+            params and cache under the decode rules, against
+            ServeModel.generate's greedy tokens and logits (a step whose
+            cache write is skipped must fail); the checkpoint phase's layer
+            state restored with shardings= onto the mesh bit for bit; a
+            one-stage pipeline_apply. No collective crosses between cards,
+            and no kernel of the port runs
   timing    kernel, plain-version and library times on the card (CUDA events),
             with the device kernels one call runs and their launches a call
             (torch.profiler; 1 for a zone-filter row, 2 for the paged row,
@@ -281,6 +294,30 @@ RESUME_ZONES, RESUME_ZONE_BYTES = 24, 512 * 1024 * 1024
 # tests/test_faults.py::TestCrashHarness::test_raid1_sweep_never_torn
 SWEEP = dict(num_devices=4, num_zones=6, member_zone_bytes=256 * 1024, stripe_blocks=4,
              redundancy="raid1")
+# the mesh phase: a ("data", "model") mesh of 1 x 1 on a world-size-1 NCCL
+# group. Training: TRAIN_ARCH at the train phase's shape, the sharded
+# Trainer's first step against the unsharded one's at
+# tests/test_sharding_small.py's bounds: loss rtol MESH_LOSS_RTOL, every leaf
+# within rtol = atol = MESH_TOL elementwise and, since parameters of 0.02 and
+# moments far below that pass any elementwise atol of 5e-2, within MESH_TOL
+# of the leaf's norm (relative L2); a leaf scaled by 1 + MESH_FAULT must fail.
+# Serving: MODEL_ARCH's MESH_NEW decode steps after the model phase's
+# prefill shape, against ServeModel.generate's greedy tokens and logits
+# (within MODEL_LOGIT_LIMIT); a decode step whose cache write is skipped must
+# fail that bound
+MESH_TRAIN_STEPS = 2
+MESH_LOSS_RTOL, MESH_TOL, MESH_FAULT = 2e-2, 5e-2, 0.5
+MESH_NEW = 8
+MESH_PIPE = dict(n_micro=4, micro_batch=8, width=1024)
+# one granite-8b layer's logical axes (granite_layer_state's tree), as
+# src/repro/models/attention.py, common.py give them
+LAYER_AXES = {"attn": {"wq": ("embed", "q_heads", "head_dim"),
+                       "wk": ("embed", "kv_heads", "head_dim"),
+                       "wv": ("embed", "kv_heads", "head_dim"),
+                       "wo": ("q_heads", "head_dim", "embed")},
+              "ln1": {"scale": ("embed",)}, "ln2": {"scale": ("embed",)},
+              "mlp": {"gate": ("embed", "mlp"), "up": ("embed", "mlp"),
+                      "down": ("mlp", "embed")}}
 
 
 _T0 = time.perf_counter()
@@ -2267,8 +2304,9 @@ class StoreAt:
     def latest_step(self):
         return self.step
 
-    def restore(self, *, like, torch_device=None):
-        return self.store.restore(self.step, like=like, torch_device=torch_device)
+    def restore(self, *, like, shardings=None, torch_device=None):
+        return self.store.restore(self.step, like=like, shardings=shardings,
+                                  torch_device=torch_device)
 
     def save(self, step, tree):
         pass
@@ -2376,6 +2414,331 @@ def phase_train(torch, cfgs, models, api, launch, step_mod, opt_mod, trainer_mod
          seconds=time.perf_counter() - t_phase)
 
 
+# ------------------------------------------------------------------ the mesh
+
+def is_card_dtensor(t):
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor) and t.device.type == "cuda"
+
+
+def mesh_leaf_check(torch, got, want):
+    """Card leaves ``got`` against host leaves ``want``, one leaf on the card
+    at a time: bit-identical or not, the largest |got - want|, the worst
+    elementwise share of the bound (|d| / (MESH_TOL + MESH_TOL |want|)) and
+    the worst relative L2 distance in units of MESH_TOL; the same two
+    shares for the largest leaf scaled by 1 + MESH_FAULT (planted)."""
+    big = max(range(len(want)), key=lambda i: want[i].numel())
+    out = dict(bit_identical=True, max_abs=0.0, elementwise_share=0.0, l2_share=0.0)
+    for i, (a, w) in enumerate(zip(got, want)):
+        a, b = a.to_local(), w.to(DEVICE)
+        out["bit_identical"] &= bool(torch.equal(a, b))
+        tried = [(None, a)] + ([("planted", a * (1 + MESH_FAULT))] if i == big else [])
+        for label, x in tried:
+            xf, bf = x.double(), b.double()
+            d = (xf - bf).abs()
+            ew = float((d / (MESH_TOL + MESH_TOL * bf.abs())).max()) if d.numel() else 0.0
+            nb = float(bf.norm())
+            l2 = float(d.norm()) / (MESH_TOL * nb) if nb else float(d.max() > 0)
+            if label:
+                out["planted_elementwise_share"], out["planted_l2_share"] = ew, l2
+            else:
+                out["max_abs"] = max(out["max_abs"], float(d.max()) if d.numel() else 0.0)
+                out["elementwise_share"] = max(out["elementwise_share"], ew)
+                out["l2_share"] = max(out["l2_share"], l2)
+    return out
+
+
+def mesh_train(torch, cfgs, api, step_mod, opt_mod, trainer_mod, tree_mod, rules_mod, mesh):
+    """TRAIN_ARCH at its published widths and depth, bf16, the train phase's
+    4 x 4,096 tokens in 2 micro-batches: one step of the unsharded Trainer
+    (its state then copied to the host and the trainer freed), then
+    MESH_TRAIN_STEPS of Trainer(mesh=, state_shardings=param_shardings(...))
+    under use_rules(rules_for("train")), the second under the profiler.
+    Every leaf handed to the sharded step must be a DTensor on the card."""
+    cfg = cfgs.get_config(TRAIN_ARCH)
+    hyper = step_mod.TrainHyper(grad_accum=TRAIN_ACCUM, adamw=opt_mod.AdamWHyper(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=100))
+    batch = api.make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED, device=DEVICE)
+
+    def trainer(steps, **kw):
+        tcfg = trainer_mod.TrainerConfig(total_steps=steps, checkpoint_every=10**9,
+                                         log_every=10**9, seed=SEED, hyper=hyper)
+        return trainer_mod.Trainer(cfg, tcfg, device=DEVICE, **kw)
+
+    def event_ms(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain = trainer(1)
+    inner, plain_ms = plain.step_fn, []
+
+    def plain_step(state, b):
+        out, ms = event_ms(lambda: inner(state, b))
+        plain_ms.append(ms)
+        return out
+    plain.step_fn = plain_step
+    plain.run([batch])
+    plain_peak = torch.cuda.max_memory_allocated()
+    plain_loss = plain.history[0]["loss"]
+    t = time.perf_counter()
+    want = [x.cpu() for x in tree_mod.leaves(plain.state)]
+    to_host_s = time.perf_counter() - t
+    del plain, inner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rules = rules_mod.rules_for("train", cfg, mesh)
+    shardings = rules_mod.param_shardings(step_mod.train_state_specs(cfg), mesh, rules)
+    torch.cuda.reset_peak_memory_stats()
+    sharded = trainer(MESH_TRAIN_STEPS, mesh=mesh, state_shardings=shardings)
+    inner, rec = sharded.step_fn, {"ms": [], "handed": []}
+
+    def sharded_step(state, b):
+        rec["handed"].append(all(map(is_card_dtensor, tree_mod.leaves(state)))
+                             and all(map(is_card_dtensor, b.values())))
+        if rec["ms"]:                     # the second step, under the profiler
+            box = []
+            dev_ms, kernels, launches = profiled_ms(
+                torch, lambda: box.append(event_ms(lambda: inner(state, b))), reps=1,
+                warmup=0)
+            out, ms = box[0]
+            rec["profile"] = dict(step_device_ms=dev_ms, step_launches=launches,
+                                  step_idle_share=None if dev_ms is None else 1 - dev_ms / ms,
+                                  top_kernels_ms=dict(sorted(kernels.items(),
+                                                             key=lambda kv: -kv[1])[:6]))
+        else:
+            out, ms = event_ms(lambda: inner(state, b))
+            t = time.perf_counter()
+            rec["leaves"] = mesh_leaf_check(torch, tree_mod.leaves(out[0]), want)
+            rec["leaves"]["seconds"] = time.perf_counter() - t
+        rec["ms"].append(ms)
+        return out
+    sharded.step_fn = sharded_step
+    with rules_mod.use_rules(rules):
+        sharded.run([batch] * MESH_TRAIN_STEPS)
+    sharded_peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in sharded.history]
+    leaves = rec["leaves"]
+    check(len(losses) == MESH_TRAIN_STEPS and all(rec["handed"]),
+          f"sharded steps {len(losses)}; every leaf a card DTensor: {rec['handed']}")
+    check(abs(losses[0] - plain_loss) <= MESH_LOSS_RTOL * abs(plain_loss),
+          f"sharded loss {losses[0]} against {plain_loss}")
+    check(leaves["elementwise_share"] <= 1 and leaves["l2_share"] <= 1,
+          f"a sharded leaf off the unsharded one: {leaves}")
+    check(leaves["planted_l2_share"] > 1, f"a leaf scaled by {1 + MESH_FAULT} passed: {leaves}")
+    out = dict(steps=MESH_TRAIN_STEPS, unsharded_step_ms=plain_ms[0],
+               sharded_step_ms=rec["ms"], sharded_over_unsharded=rec["ms"][-1] / plain_ms[0],
+               loss_unsharded=plain_loss, losses_sharded=losses,
+               loss_bit_identical=losses[0] == plain_loss, leaves=leaves,
+               unsharded_state_to_host_seconds=to_host_s,
+               max_memory_allocated=dict(unsharded=plain_peak, sharded=sharded_peak),
+               profile=rec["profile"], every_leaf_a_card_dtensor=all(rec["handed"]))
+    del sharded, inner, want, batch, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve(torch, cfgs, models, api, serve_mod, tree_mod, rules_mod, attn_mod, mesh):
+    """MODEL_ARCH at its published widths and depth, bf16: ServeModel's
+    greedy generate of 1 + MESH_NEW tokens (the model phase's prompts),
+    then, from the same prompts' prefill, MESH_NEW decode steps of
+    make_serve_step twice: on plain tensors, and over DTensor params and a
+    DTensor cache under use_rules(rules_for("decode")). Held: the sharded
+    tokens equal generate's, its logits within MODEL_LOGIT_LIMIT of
+    generate's, and the K/V it wrote within MODEL_LOGIT_LIMIT of the plain
+    steps'. Planted: the first sharded step again with the cache write
+    skipped, whose slot must fail that check."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    cfg = cfgs.get_config(MODEL_ARCH)
+    B, L, N = MODEL_BATCH, MODEL_PROMPT, MESH_NEW + 1
+    model = serve_mod.ServeModel(cfg, models.init_params(models.param_specs(cfg), SEED, DEVICE),
+                                 device=DEVICE)
+    batch = api.make_batch(cfg, B, L, seed=SEED, device=DEVICE)
+    want_tokens, want_logits = model.generate(batch, N)
+    with torch.no_grad():
+        last, prefix = model.prefill(batch)
+    cache = models.init_params(models.cache_specs(cfg, B, L + N), 0, DEVICE)
+    tree_mod.tree_map(serve_mod._fit, prefix, cache)
+    del prefix
+    plain_cache, spare = (tree_mod.tree_map(torch.clone, cache) for _ in range(2))
+    rules = rules_mod.rules_for("decode", cfg, mesh)
+    params = rules_mod.distribute_tree(
+        model.tree(), rules_mod.param_shardings(models.param_specs(cfg), mesh, rules))
+    c_sh = rules_mod.param_shardings(models.cache_specs(cfg, B, L + N), mesh, rules)
+    cache, spare = rules_mod.distribute_tree(cache, c_sh), rules_mod.distribute_tree(spare, c_sh)
+    lay = [Shard(0) if n == "data" else Replicate() for n in mesh.mesh_dim_names]
+    step = serve_mod.make_serve_step(cfg)
+    first = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
+    check(torch.equal(first, want_tokens[:, :1]), "the prefill's token differs from generate's")
+
+    def decode(p, c, sharded):
+        """MESH_NEW greedy steps: (tokens, logits, device ms, host ms, every
+        leaf handed in a card DTensor)."""
+        tok, toks, logits, ms, host_ms, handed = first, [], [], [], [], []
+        for i in range(MESH_NEW):
+            t_in = distribute_tensor(tok, mesh, lay, src_data_rank=None) if sharded else tok
+            handed.append(all(map(is_card_dtensor, tree_mod.leaves(p) + tree_mod.leaves(c)))
+                          and is_card_dtensor(t_in))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            nxt, lg, c = step(p, c, t_in, L + i)
+            end.record()
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            tok = nxt.full_tensor() if sharded else nxt
+            toks.append(tok)
+            logits.append(lg.full_tensor() if sharded else lg)
+        return torch.cat(toks, dim=1), torch.stack(logits, dim=1), ms, host_ms, all(handed)
+
+    def written(c, slots):
+        """max |K/V - the plain steps' K/V| at ``slots`` over the cache."""
+        return max(float((a.to_local() - b)[:, :, slots].float().abs().max())
+                   for a, b in zip(tree_mod.leaves(c), tree_mod.leaves(plain_cache)))
+    with torch.no_grad():
+        plain_tokens, _, plain_ms, plain_host_ms, _ = decode(model.tree(), plain_cache, False)
+        with rules_mod.use_rules(rules):
+            got_tokens, got_logits, ms, host_ms, handed = decode(params, cache, True)
+            # planted: the first step again, from the prefill's cache, writing nothing
+            write = attn_mod.write_slot
+            attn_mod.write_slot = lambda *a: None
+            try:
+                step(params, spare, distribute_tensor(first, mesh, lay, src_data_rank=None), L)
+            finally:
+                attn_mod.write_slot = write
+    err, share, finite = logit_check(torch, got_logits, want_logits[:, 1:])
+    kv_err, bad_kv_err = written(cache, slice(L, L + MESH_NEW)), written(spare, L)
+    check(handed, "a leaf handed to the sharded decode is not a DTensor on the card")
+    check(torch.equal(plain_tokens, want_tokens[:, 1:]), "plain decode tokens differ from generate's")
+    check(finite and torch.equal(got_tokens, want_tokens[:, 1:]),
+          "sharded decode tokens differ from generate's")
+    check(share <= 1, f"sharded decode logits {err} off generate's (limit {MODEL_LOGIT_LIMIT})")
+    check(kv_err <= MODEL_LOGIT_LIMIT, f"sharded K/V writes {kv_err} off the plain steps'")
+    check(bad_kv_err > MODEL_LOGIT_LIMIT, f"a decode without its cache write passed ({bad_kv_err})")
+    out = dict(steps=MESH_NEW, batch=B, prompt=L, tokens_equal=True,
+               logits_bit_identical=bool(torch.equal(got_logits, want_logits[:, 1:])),
+               logits_max_abs=err, logits_share_of_limit=share, kv_written_max_abs=kv_err,
+               planted_skipped_write_kv_max_abs=bad_kv_err,
+               unsharded_step_ms=dict(median=statistics.median(plain_ms[1:]), all=plain_ms),
+               unsharded_step_host_ms=statistics.median(plain_host_ms[1:]),
+               sharded_step_ms=dict(median=statistics.median(ms[1:]), first=ms[0], all=ms),
+               sharded_step_host_ms=dict(median=statistics.median(host_ms[1:]),
+                                         first=host_ms[0]),
+               every_leaf_a_card_dtensor=handed)
+    del model, params, cache, spare, plain_cache, batch, want_logits, got_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_restore(torch, cfgs, ZonedDevice, train_mod, tree_mod, rules_mod, mesh):
+    """The checkpoint phase's granite-8b layer state (same generator), saved
+    to zones and restored with ``shardings=`` onto the card mesh: every
+    leaf a DTensor on the mesh, its local shard equal bit for bit to the
+    saved leaf."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    state = granite_layer_state(torch, g)
+    rules = rules_mod.rules_for("train", cfgs.get_config(MODEL_ARCH), mesh)
+
+    def sharding(axes, t):
+        return rules_mod.named_sharding_for(t.shape, axes, mesh, rules)
+    sh = {k: {g_: {n: sharding(LAYER_AXES[g_][n], t) for n, t in grp.items()}
+              for g_, grp in state[k].items()} for k in ("params", "m", "v")}
+    sh["step"] = sharding((), state["step"])
+    dev = ZonedDevice(num_zones=CKPT_ZONES, zone_bytes=CKPT_ZONE_BYTES)
+    store = train_mod.ZonedCheckpointStore(device=dev, keep=2, torch_device=DEVICE)
+    t = time.perf_counter()
+    store.save(1, state)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    got = store.restore(like=state, shardings=sh)
+    restore_s = time.perf_counter() - t
+    pairs = list(zip(tree_mod.leaves(got), tree_mod.leaves(state)))
+    check(all(is_card_dtensor(a) and tuple(a.device_mesh.shape) == tuple(mesh.shape)
+              for a, _ in pairs), "a restored leaf is not a DTensor on the card mesh")
+    same = all(torch.equal(a.to_local(), b) for a, b in pairs)
+    check(same, "a restored shard differs from the saved leaf")
+    out = dict(leaves=len(pairs), payload_bytes=sum(b.numel() * b.element_size() for _, b in pairs),
+               save_seconds=save_s, restore_seconds=restore_s, bit_identical=same,
+               host_to_card_bytes=store.h2d.snapshot()[1])
+    del got, state, store, dev, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_pipeline(torch, pipe_mod):
+    """pipeline_apply on a ("pipe",) mesh of 1 on the card against the
+    stages applied in turn."""
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pipe",))
+    M, mb, d = MESH_PIPE["n_micro"], MESH_PIPE["micro_batch"], MESH_PIPE["width"]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = {"w": torch.randn((1, d, d), generator=g, device=DEVICE) * d ** -0.5,
+              "b": torch.randn((1, d), generator=g, device=DEVICE) * 0.1}
+    xs = torch.randn((M, mb, d), generator=g, device=DEVICE)
+
+    def stage(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+    got = pipe_mod.pipeline_apply(stage, params, xs, mesh=mesh)
+    want = torch.stack([stage({k: v[0] for k, v in params.items()}, x) for x in xs])
+    err = float((got - want).abs().max())
+    check(err <= 1e-5, f"the one-stage pipeline is {err} off the stages applied in turn")
+    return dict(stages=1, n_micro=M, micro_batch=mb, width=d, max_abs=err)
+
+
+def phase_mesh(torch, cfgs, models, api, serve_mod, step_mod, opt_mod, trainer_mod, train_mod,
+               tree_mod, ZonedDevice, counted, card):
+    """The device mesh on the card: a world-size-1 NCCL group and a 1 x 1
+    ("data", "model") mesh from make_local_mesh, then mesh_train,
+    mesh_serve, mesh_restore and mesh_pipeline. No collective crosses
+    between cards (one card): this holds DeviceMesh on CUDA, DTensor's
+    dispatch of every op of the model, train and serve paths, and the
+    sharded restore, and measures DTensor's host cost. No kernel of the
+    port is on this path (the counts must stay 0)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.sharding import pipeline as pipe_mod
+    from repro_torch.sharding import rules as rules_mod
+    t_phase = time.perf_counter()
+    for fn in counted:
+        fn.launches = 0
+    t = time.perf_counter()
+    mesh = make_local_mesh(1, 1, device=DEVICE)
+    group = dict(backend=dist.get_backend(), world_size=dist.get_world_size(),
+                 mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                 seconds=time.perf_counter() - t)
+    check(group["backend"] == "nccl" and mesh.device_type == "cuda",
+          f"the mesh's group is {group['backend']} on {mesh.device_type}")
+    try:
+        train = mesh_train(torch, cfgs, api, step_mod, opt_mod, trainer_mod, tree_mod,
+                           rules_mod, mesh)
+        serve = mesh_serve(torch, cfgs, models, api, serve_mod, tree_mod, rules_mod,
+                           attn_mod, mesh)
+        restore = mesh_restore(torch, cfgs, ZonedDevice, train_mod, tree_mod, rules_mod, mesh)
+        pipeline = mesh_pipeline(torch, pipe_mod)
+    finally:
+        dist.destroy_process_group()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    check(not any(launches.values()), f"kernels launched on the mesh path: {launches}")
+    emit("mesh", card=card, group=group, train=train, serve=serve, restore=restore,
+         pipeline=pipeline, kernel_launches=launches,
+         note="world size 1: no collective bandwidth is measured",
+         cuts={TRAIN_ARCH + " train": "none (24 layers, published widths)",
+               MODEL_ARCH + " serve": "none (36 layers, published widths)",
+               MODEL_ARCH + " restore": "one layer's train state, as the checkpoint phase"},
+         seconds=time.perf_counter() - t_phase)
+
+
 def profiled_ms(torch, fn, reps=10, warmup=3, tries=1):
     """(device ms per call, {kernel name: its device ms per call}, device
     launches per call) from torch.profiler: the summed device time of what
@@ -2387,8 +2750,9 @@ def profiled_ms(torch, fn, reps=10, warmup=3, tries=1):
     even with it (which made earlier runs see 1.3 of a paged call's 2
     launches; so the timing phase runs right after the build), and now and
     then a whole session (on an H100, once in the first half minute of a
-    process). A miss only lowers the count,
-    so of ``tries`` sessions the one that saw the most kernels is kept."""
+    process), or the same few kernels of three sessions in a row (7 of 10
+    calls of one row, on an H100). A miss only lowers the count, so of
+    ``tries`` sessions the one that saw the most kernels is kept."""
     from torch.profiler import ProfilerActivity, profile, schedule
     best = (None, {}, None)
     for _ in range(tries):
@@ -2437,7 +2801,7 @@ def host_us(torch, fn, reps=50, batches=5):
 
 def measure(torch, fn, reps=20):
     ms, (host, host_mean) = cuda_ms(torch, fn, reps=reps), host_us(torch, fn)
-    dev_ms, names, per_call = profiled_ms(torch, fn, tries=3)
+    dev_ms, names, per_call = profiled_ms(torch, fn, tries=6)
     return dict(ms=ms, device_ms=dev_ms, host_us=host, host_us_mean=host_mean,
                 device_kernels=names, device_launches_per_call=per_call)
 
@@ -2673,6 +3037,8 @@ def main():
         phase_model(torch, cfgs, models, api, serve_mod, tree_mod, counted, smi_line)
         phase_train(torch, cfgs, models, api, launch, step_mod, opt_mod, trainer_mod, train_mod,
                     tree_mod, ZonedDevice, counted, smi_line)
+        phase_mesh(torch, cfgs, models, api, serve_mod, step_mod, opt_mod, trainer_mod,
+                   train_mod, tree_mod, ZonedDevice, counted, smi_line)
         del data
     except PhaseFailed as e:
         emit("failed", error=str(e))

@@ -10,6 +10,7 @@ float32 (``preferred_element_type``) takes float32 operands here: a bf16
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -17,6 +18,8 @@ import torch
 from repro_torch.models.common import cdtype, rope, softcap
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding.rules import (as_replicated, contract, local_region, shard_act,
+                                        sharded_dims, use_param, write_slot)
 
 __all__ = [
     "attn_specs", "cross_attn_specs", "apply_attention", "apply_cross_attention",
@@ -54,7 +57,7 @@ def _heads(x: torch.Tensor, w: torch.Tensor, dt) -> torch.Tensor:
 
 def _project_q(cfg, p, x, positions, use_rope=True):
     dt = cdtype(cfg)
-    q = _heads(x, p["wq"], dt)
+    q = _heads(x, use_param(p["wq"], ("embed", "q_heads", "head_dim")), dt)
     if "bq" in p:
         q = q + p["bq"].to(dt)
     if use_rope:
@@ -64,8 +67,8 @@ def _project_q(cfg, p, x, positions, use_rope=True):
 
 def _project_kv(cfg, p, x, positions, use_rope=True):
     dt = cdtype(cfg)
-    k = _heads(x, p["wk"], dt)
-    v = _heads(x, p["wv"], dt)
+    k = _heads(x, use_param(p["wk"], ("embed", "kv_heads", "head_dim")), dt)
+    v = _heads(x, use_param(p["wv"], ("embed", "kv_heads", "head_dim")), dt)
     if "bk" in p:
         k, v = k + p["bk"].to(dt), v + p["bv"].to(dt)
     if use_rope:
@@ -76,7 +79,8 @@ def _project_kv(cfg, p, x, positions, use_rope=True):
 def _out_proj(cfg, p, o, B, Lq):
     dt = cdtype(cfg)
     H, hd, d = p["wo"].shape
-    y = o.reshape(B, Lq, H * hd) @ p["wo"].reshape(H * hd, d).to(dt)
+    wo = use_param(p["wo"], ("q_heads", "head_dim", "embed"))
+    y = contract(o.reshape(B, Lq, H * hd), wo.reshape(H * hd, d).to(dt))
     if "bo" in p:
         y = y + p["bo"].to(dt)
     return y
@@ -87,7 +91,7 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     product), in one copy at most."""
     if x.dtype == torch.float32:
         return x.contiguous()
-    return torch.empty(x.shape, dtype=torch.float32, device=x.device).copy_(x)
+    return x.to(torch.float32, memory_format=torch.contiguous_format)
 
 
 def chunked_attention(
@@ -101,6 +105,24 @@ def chunked_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Online-softmax attention over KV chunks. Returns [B, Lq, H, hd].
+    DTensors attend on their local blocks of (batch, heads), laid out as
+    ``k`` is."""
+    fn = functools.partial(_chunked_attention, cfg, causal=causal, window=window,
+                           q_offset=q_offset)
+    return local_region(fn, k, ins=("same",) * 3, outs=("same",), keep=(0, 2))(q, k, v)
+
+
+def _chunked_attention(
+    cfg: ModelConfig,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    window: Optional[int],
+    q_offset: int,
+) -> torch.Tensor:
+    """:func:`chunked_attention` on plain tensors.
 
     The reference broadcasts K/V to all H heads (a sharding choice); here
     the G = H / KV query heads of a KV head share one product against its
@@ -158,9 +180,12 @@ def apply_attention(
     B, L, _ = x.shape
     q = _project_q(cfg, p, x, positions)
     k, v = _project_kv(cfg, p, x, positions)
+    q = shard_act(q, ("act_batch", "act_seq", "act_heads", None))
+    k = shard_act(k, ("act_batch", "act_seq", "act_kv_heads", None))
+    v = shard_act(v, ("act_batch", "act_seq", "act_kv_heads", None))
     o = chunked_attention(cfg, q, k, v, causal=causal,
                           window=window or cfg.sliding_window)
-    return _out_proj(cfg, p, o, B, L)
+    return shard_act(_out_proj(cfg, p, o, B, L), ("act_batch", "act_seq", "act_embed"))
 
 
 def apply_cross_attention(
@@ -180,17 +205,30 @@ def _grouped_attend(cfg, q, k, v, valid=None, cap=None):
     """Decode attention of q [B, 1, H, hd] over k/v [B, S, KV, hd] with the
     grouped GQA product (q as [B, KV, G, hd]): K/V are read once for the G
     heads that share them; slots where ``valid`` is False are masked.
-    Returns [B, 1, H, hd] in q's dtype."""
-    B = q.shape[0]
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    Returns [B, 1, H, hd] in q's dtype. A DTensor cache whose slot dim is
+    whole attends on local blocks of (batch, heads), as
+    :func:`chunked_attention`; one sharded over slots (flash-decode) goes
+    op by op, DTensor reducing the softmax across the slot shards."""
+    fn = functools.partial(_grouped, cap=cap)
+    if 1 not in sharded_dims(k):
+        fn = local_region(fn, k, ins=("same",) * 3 + (None,), outs=("same",), keep=(0, 2))
+    return fn(q, k, v, valid)
+
+
+def _grouped(q, k, v, valid, *, cap):
+    """:func:`_grouped_attend`'s product (on plain tensors, or op by op on a
+    slot-sharded cache, whose P.V partial sums are reduced in float32)."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
     G = H // KV
     qh = q.reshape(B, KV, G, hd) * hd ** -0.5
     logits = qh.float() @ _f32(k.transpose(1, 2).to(qh.dtype)).transpose(-1, -2)
     logits = softcap(logits, cap)                                 # [B, KV, G, S]
     if valid is not None:
-        logits = torch.where(valid, logits, NEG_INF)
+        logits = torch.where(as_replicated(valid, logits), logits, NEG_INF)
     att = torch.softmax(logits, dim=-1)
     o = att.to(v.dtype).float() @ _f32(v.transpose(1, 2))        # [B, KV, G, hd]
+    o = shard_act(o, ("act_batch", "act_kv_heads", None, None))
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -214,8 +252,10 @@ def decode_attention(
     q = _project_q(cfg, p, x, positions)                       # [B,1,H,hd]
     k_new, v_new = _project_kv(cfg, p, x, positions)           # [B,1,KV,hd]
     slot = pos % S_max
-    k_cache[:, slot] = k_new[:, 0]
-    v_cache[:, slot] = v_new[:, 0]
+    write_slot(k_cache, slot, k_new)
+    write_slot(v_cache, slot, v_new)
+    k_cache = shard_act(k_cache, ("act_batch", "act_kv_seq", "act_kv_heads", None))
+    v_cache = shard_act(v_cache, ("act_batch", "act_kv_seq", "act_kv_heads", None))
 
     # which cache slots are valid at position `pos`?
     slots = torch.arange(S_max, device=x.device)

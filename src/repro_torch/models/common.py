@@ -8,10 +8,13 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding.rules import (as_replicated, contract, local_region, shard_act,
+                                        use_param)
 
 __all__ = [
     "norm_specs", "apply_norm", "mlp_specs", "apply_mlp",
     "embed_specs", "rope", "softcap", "cdtype", "torch_dtype", "silu",
+    "per_channel",
 ]
 
 
@@ -41,6 +44,15 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def per_channel(fn, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``fn(x, w)`` for a map along the sequence that is independent per
+    batch row and channel: x [B, L, D], w [K, D] (a depthwise causal conv).
+    DTensors run it on local blocks of (batch, channels), the sequence
+    whole (DTensor's padding rule fails on some torch releases); the
+    weight's gradient leaves as a partial sum over the batch shards."""
+    return local_region(fn, x, ins=("same", {2: 1}), outs=("same",), keep=(0, 2))(x, w)
 
 
 # ------------------------------------------------------------------- norms
@@ -93,16 +105,19 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     dt = cdtype(cfg)
     if cfg.activation in ("silu", "gelu_glu"):
         act = silu if cfg.activation == "silu" else gelu_tanh
-        h = act(x @ p["gate"].to(dt)) * (x @ p["up"].to(dt))
+        gate = use_param(p["gate"], ("embed", "mlp"))
+        up = use_param(p["up"], ("embed", "mlp"))
+        h = act(x @ gate.to(dt)) * (x @ up.to(dt))
     else:
-        h = x @ p["up"].to(dt)
+        h = x @ use_param(p["up"], ("embed", "mlp")).to(dt)
         if "up_b" in p:
             h = h + p["up_b"].to(dt)
         h = gelu_tanh(h)
-    y = h @ p["down"].to(dt)
+    h = shard_act(h, ("act_batch", "act_seq", "act_mlp"))
+    y = contract(h, use_param(p["down"], ("mlp", "embed")).to(dt))
     if "down_b" in p:
         y = y + p["down_b"].to(dt)
-    return y
+    return shard_act(y, ("act_batch", "act_seq", "act_embed"))
 
 
 # -------------------------------------------------------------- embeddings
@@ -124,7 +139,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     hd = x.shape[-1]
     half = hd // 2
     freq = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=x.device) / half))
-    ang = positions[..., None].float() * freq
+    ang = as_replicated(positions, x)[..., None].float() * as_replicated(freq, x)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -8,8 +8,9 @@ axis names + initializer). From that single source of truth we derive:
   * ``load_reference_params`` — the JAX package's parameters, carried over.
 
 Trees are walked in ``jax.tree_util``'s order (``repro_torch/_tree.py``), so a
-leaf's path is the same string in both packages. The logical axis names are
-kept for the sharding slice; one device uses none of them.
+leaf's path is the same string in both packages. The logical axis names
+give each leaf its layout on a mesh (``repro_torch.sharding.param_shardings``);
+one device uses none of them.
 """
 from __future__ import annotations
 

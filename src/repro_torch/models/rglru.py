@@ -11,9 +11,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import cdtype, gelu_tanh
+from repro_torch.models.common import cdtype, gelu_tanh, per_channel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding.rules import contract, shard_act, use_param
 
 __all__ = ["rglru_specs", "apply_rglru", "rglru_decode_step", "rglru_cache_specs"]
 
@@ -78,12 +79,13 @@ def apply_rglru(cfg: ModelConfig, p: dict, u: torch.Tensor,
     """u: [B, L, d] (prefill, parallel scan). With ``return_cache``, also
     returns the decode cache (conv tail + h_T)."""
     dt = cdtype(cfg)
-    x = u @ p["wx"].to(dt)
-    g = gelu_tanh(u @ p["wg"].to(dt))
-    xc = _causal_conv(x, p["conv"].to(dt))
+    x = u @ use_param(p["wx"], ("embed", "ssm_inner")).to(dt)
+    g = gelu_tanh(u @ use_param(p["wg"], ("embed", "ssm_inner")).to(dt))
+    xc = per_channel(_causal_conv, x, p["conv"].to(dt))
+    xc = shard_act(xc, ("act_batch", "act_seq", "act_ssm_inner"))
     log_a, b = _gates(cfg, p, xc)
     h = _linear_scan(torch.exp(log_a), b)
-    out = (h.to(dt) * g) @ p["wo"].to(dt)
+    out = contract(h.to(dt) * g, use_param(p["wo"], ("ssm_inner", "embed")).to(dt))
     if return_cache:
         kc = cfg.ssm_conv
         L = x.shape[1]
@@ -111,5 +113,5 @@ def rglru_decode_step(cfg: ModelConfig, p: dict, u: torch.Tensor, cache: dict):
     xc = torch.einsum("bkd,kd->bd", hist, p["conv"].to(dt))
     log_a, b = _gates(cfg, p, xc)
     h = torch.exp(log_a) * cache["h"] + b                        # [B, dr] f32
-    y = (h.to(dt) * g) @ p["wo"].to(dt)
+    y = contract(h.to(dt) * g, p["wo"].to(dt))
     return y[:, None, :], {"conv": hist[:, 1:, :], "h": h}

@@ -7,12 +7,15 @@ loop over chunks). Decode is the O(1) recurrent update on a persistent
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import cdtype, silu
+from repro_torch.models.common import cdtype, per_channel, silu
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
+from repro_torch.sharding.rules import contract, local_region, shard_act, use_param
 
 __all__ = ["ssm_specs", "apply_ssm", "ssm_decode_step", "ssm_cache_specs"]
 
@@ -55,11 +58,11 @@ def _gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
 
 def _project(cfg: ModelConfig, p: dict, u: torch.Tensor):
     dt_ = cdtype(cfg)
-    z = u @ p["wz"].to(dt_)
-    x = u @ p["wx"].to(dt_)
-    Bm = u @ p["wB"].to(dt_)
-    Cm = u @ p["wC"].to(dt_)
-    dt_raw = (u @ p["wdt"].to(dt_)).float()
+    z = u @ use_param(p["wz"], ("embed", "ssm_inner")).to(dt_)
+    x = u @ use_param(p["wx"], ("embed", "ssm_inner")).to(dt_)
+    Bm = u @ use_param(p["wB"], ("embed", "ssm_state")).to(dt_)
+    Cm = u @ use_param(p["wC"], ("embed", "ssm_state")).to(dt_)
+    dt_raw = (u @ use_param(p["wdt"], ("embed", "ssm_heads")).to(dt_)).float()
     return z, x, Bm, Cm, dt_raw
 
 
@@ -68,22 +71,51 @@ def apply_ssm(cfg: ModelConfig, p: dict, u: torch.Tensor,
     """u: [B, L, d_model]. Chunked SSD scan (prefill). With
     ``return_cache``, also returns the decode cache (conv tail + final SSM
     state) so prefill hands off to the recurrent decode path."""
-    B, L, _ = u.shape
-    nh, hp, ds = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    L = u.shape[1]
     cl = min(cfg.ssm_chunk, L)
     if L % cl:
         raise ValueError(f"seq {L} must be a multiple of ssm_chunk {cl}")
-    nc = L // cl
-    cdt = cdtype(cfg)
 
     z, x, Bm, Cm, dt_raw = _project(cfg, p, u)
     pre_conv = torch.cat([x, Bm, Cm], dim=-1) if return_cache else None
-    x = _causal_conv(x, p["conv_x"].to(x.dtype))
-    Bm = _causal_conv(Bm, p["conv_B"].to(Bm.dtype))
-    Cm = _causal_conv(Cm, p["conv_C"].to(Cm.dtype))
+    x = per_channel(_causal_conv, x, p["conv_x"].to(x.dtype))
+    Bm = per_channel(_causal_conv, Bm, p["conv_B"].to(Bm.dtype))
+    Cm = per_channel(_causal_conv, Cm, p["conv_C"].to(Cm.dtype))
+    x = shard_act(x, ("act_batch", "act_seq", "act_ssm_inner"))
 
-    dt = F.softplus(dt_raw + p["dt_bias"])                       # [B, L, nh] f32
-    A = -torch.exp(p["A_log"])                                   # [nh] f32
+    y, H = _ssd_scan(cfg, x, Bm, Cm, dt_raw, p["dt_bias"], p["A_log"], p["D"])
+    y = _gated_rmsnorm(y, z, p["norm"])
+    out = contract(y, use_param(p["wo"], ("ssm_inner", "embed")).to(y.dtype))
+    if return_cache:
+        kc = cfg.ssm_conv
+        tail = pre_conv[:, L - (kc - 1):, :] if L >= kc - 1 else F.pad(
+            pre_conv, (0, 0, kc - 1 - L, 0))
+        return out, {"conv": tail, "state": H}
+    return out
+
+
+def _ssd_scan(cfg: ModelConfig, x, Bm, Cm, dt_raw, dt_bias, A_log, D):
+    """The SSD scan of :func:`apply_ssm`: (y [B, L, d_inner] compute dtype,
+    final state [B, heads, head_dim, state]). DTensors scan on local blocks
+    of (batch, heads): ``x``'s batch layout, and its heads where the mesh
+    dims that shard ``d_inner`` divide the heads too (else whole). B and C
+    are whole over the heads and the per-head parameters whole over the
+    batch, so their gradients are partial sums there."""
+    fn = local_region(functools.partial(_ssd, cfg), x,
+                      ins=("same", {0: 0}, {0: 0}, "same", {2: 0}, {2: 0}, {2: 0}),
+                      outs=("same", {0: 0, 2: 1}), keep=(0, 2), blocks={2: cfg.ssm_heads})
+    return fn(x, Bm, Cm, dt_raw, dt_bias, A_log, D)
+
+
+def _ssd(cfg: ModelConfig, x, Bm, Cm, dt_raw, dt_bias, A_log, D):
+    """:func:`_ssd_scan` on plain tensors."""
+    B, L, _ = x.shape
+    nh, hp, ds = dt_raw.shape[-1], cfg.ssm_head_dim, Bm.shape[-1]
+    cl = min(cfg.ssm_chunk, L)
+    nc = L // cl
+    cdt = cdtype(cfg)
+    dt = F.softplus(dt_raw + dt_bias)                            # [B, L, nh] f32
+    A = -torch.exp(A_log)                                        # [nh] f32
     dA = dt * A                                                  # [B, L, nh]
 
     # chunk everything: [B, nc, cl, ...]
@@ -97,7 +129,7 @@ def apply_ssm(cfg: ModelConfig, p: dict, u: torch.Tensor,
     # intra-chunk (quadratic): M[i,j] = (C_i.B_j) exp(cs_i - cs_j) dt_j, i>=j
     Gm = Cc.float() @ Bc.float().transpose(-1, -2)               # [B,nc,i,j]
     decay = torch.exp(cs[:, :, :, None, :] - cs[:, :, None, :, :])  # [B,nc,i,j,nh]
-    tri = torch.tril(torch.ones((cl, cl), dtype=torch.bool, device=u.device))
+    tri = torch.tril(torch.ones((cl, cl), dtype=torch.bool, device=x.device))
     M = torch.where(tri[None, None, :, :, None],
                     Gm[..., None] * decay * dtc[:, :, None, :, :], 0.0)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", M.to(cdt).float(), xh.float())
@@ -109,7 +141,7 @@ def apply_ssm(cfg: ModelConfig, p: dict, u: torch.Tensor,
 
     # inter-chunk linear recurrence over chunk states
     Tc = torch.exp(cs[:, :, -1, :])                              # [B,nc,nh]
-    H = torch.zeros((B, nh, hp, ds), dtype=torch.float32, device=u.device)
+    H = torch.zeros((B, nh, hp, ds), dtype=torch.float32, device=x.device)
     H_prev = []
     for c in range(nc):
         H_prev.append(H)
@@ -120,16 +152,8 @@ def apply_ssm(cfg: ModelConfig, p: dict, u: torch.Tensor,
     y_off = y_off * torch.exp(cs)[..., None]
 
     y = (y_intra + y_off).reshape(B, L, nh, hp)
-    y = y + (p["D"][None, None, :, None] * x.reshape(B, L, nh, hp).float())
-    y = y.reshape(B, L, nh * hp).to(cdt)
-    y = _gated_rmsnorm(y, z, p["norm"])
-    out = y @ p["wo"].to(y.dtype)
-    if return_cache:
-        kc = cfg.ssm_conv
-        tail = pre_conv[:, L - (kc - 1):, :] if L >= kc - 1 else F.pad(
-            pre_conv, (0, 0, kc - 1 - L, 0))
-        return out, {"conv": tail, "state": H}
-    return out
+    y = y + (D[None, None, :, None] * x.reshape(B, L, nh, hp).float())
+    return y.reshape(B, L, nh * hp).to(cdt), H
 
 
 # ------------------------------------------------------------------- decode
@@ -167,4 +191,4 @@ def ssm_decode_step(cfg: ModelConfig, p: dict, u: torch.Tensor, cache: dict):
     y = y.reshape(B, 1, di).to(cdtype(cfg))
     y = _gated_rmsnorm(y, z, p["norm"])
     new_cache = {"conv": hist[:, 1:, :], "state": state}
-    return y @ p["wo"].to(y.dtype), new_cache
+    return contract(y, p["wo"].to(y.dtype)), new_cache

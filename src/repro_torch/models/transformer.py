@@ -36,6 +36,7 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec, stack_layer_specs
+from repro_torch.sharding.rules import local_region, shard_act, use_param
 from repro_torch import _tree
 
 __all__ = [
@@ -213,16 +214,20 @@ def _apply_kind(cfg: ModelConfig, kind: str, p: dict, x, ctx: dict,
 
 
 def _ring_pack(k, v, window):
-    """Pack prefill K/V into the decode cache layout (ring for windowed)."""
+    """Pack prefill K/V into the decode cache layout (ring for windowed):
+    position p of the last ``window`` lands in slot ``p % window``, a
+    rotation of those positions by ``L % window`` (two slices joined, which
+    DTensor lays out as it does any slice; an indexed write has no DTensor
+    rule on some torch releases)."""
     if window is None or k.shape[1] <= window:
         return {"k": k, "v": v}
     L = k.shape[1]
-    idx = torch.arange(L - window, L, device=k.device) % window
-    ring_k = torch.zeros((k.shape[0], window, *k.shape[2:]), dtype=k.dtype, device=k.device)
-    ring_v = torch.zeros((v.shape[0], window, *v.shape[2:]), dtype=v.dtype, device=v.device)
-    ring_k[:, idx] = k[:, L - window:]
-    ring_v[:, idx] = v[:, L - window:]
-    return {"k": ring_k, "v": ring_v}
+    r = L % window
+
+    def ring(t):
+        last = t[:, L - window:]
+        return torch.cat([last[:, window - r:], last[:, :window - r]], dim=1)
+    return {"k": ring(k), "v": ring(v)}
 
 
 # ---------------------------------------------------------- kind: decode
@@ -346,8 +351,18 @@ def memory_len(cfg: ModelConfig, seq_len: int) -> int:
 
 # ------------------------------------------------------------- full model
 
+def _lookup(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``tok[tokens]``. With DTensors each rank looks its own tokens up in
+    the whole table (gathered, as the FSDP gather of any weight), so the
+    table's gradient leaves as a partial sum over the mesh dims that shard
+    the tokens; DTensor's own indexed backward (``index_put``) fails to
+    propagate placements on some torch releases."""
+    fn = local_region(lambda t, ids: t[ids.long()], tokens, ins=({}, "same"), outs=("same",))
+    return fn(tok, tokens)
+
+
 def _embed_tokens(cfg, params, tokens):
-    x = params["embed"]["tok"][tokens.long()].to(cdtype(cfg))
+    x = _lookup(params["embed"]["tok"], tokens).to(cdtype(cfg))
     if cfg.scale_embeddings:
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x
@@ -355,10 +370,11 @@ def _embed_tokens(cfg, params, tokens):
 
 def _lm_head(cfg, params, x):
     if cfg.tie_embeddings:
-        w = params["embed"]["tok"].T
+        w = use_param(params["embed"]["tok"], ("vocab", "embed")).T
     else:
-        w = params["embed"]["head"]
-    return x @ w.to(cdtype(cfg))
+        w = use_param(params["embed"]["head"], ("embed", "vocab"))
+    logits = x @ w.to(cdtype(cfg))
+    return shard_act(logits, ("act_batch", "act_seq", "act_vocab"))
 
 
 def _layers(tree, n: int) -> list:
@@ -426,6 +442,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
         memory = batch["patches"].to(cdtype(cfg))  # stub vision frontend
 
     x = _embed_tokens(cfg, params, tokens)
+    x = shard_act(x, ("act_batch", "act_seq", "act_embed"))
     ctx = {"positions": positions, "memory": memory}
     x, aux, caches = _run_segments(cfg, params["segments"], decoder_layout(cfg),
                                    x, ctx, collect_cache, remat)
@@ -466,7 +483,9 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = True):
     labels = batch["labels"].long()
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    # [B, L, 1] until it meets lse: a vocab-sharded gather's masked partial
+    # sum must be reduced in the gather's own shape
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])
     mask = (labels >= 0).float()
-    ce = ((lse - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    ce = ((lse[..., None] - gold)[..., 0] * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return ce + aux, {"ce": ce, "aux": aux}

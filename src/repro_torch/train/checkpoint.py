@@ -40,6 +40,17 @@ the same tree. A restore returns tensors on the store's ``torch_device``
 one host-to-device copy, counted in :attr:`ZonedCheckpointStore.h2d`; a
 save's device-to-host copies are counted in :attr:`ZonedCheckpointStore.d2h`.
 ``device=`` keeps its reference meaning: the zoned device.
+
+Sharded state: a save gathers each DTensor leaf whole (a collective every
+rank of its mesh joins) and writes the same bytes as an unsharded save.
+Every rank of the mesh opens a store on the same file (the mesh's first
+rank first) and calls :meth:`~ZonedCheckpointStore.save`; that first rank
+alone appends and commits, and the others wait for it over the mesh and
+then re-read the manifests. A save of plain leaves is the calling
+process's alone, whatever process group it belongs to. ``restore(shardings=...)`` reads on every rank, checks the
+checksum, and lays each leaf out by its
+:class:`~repro_torch.sharding.rules.Sharding`: each rank copies only its
+own shard to its device, and no whole leaf crosses between ranks.
 """
 from __future__ import annotations
 
@@ -56,6 +67,9 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Partial, Shard
 
 from repro_torch._device import resolve_device
 from repro_torch.array import OffloadScheduler, StripedZoneArray
@@ -63,6 +77,7 @@ from repro_torch.core.csd import CopyCounter
 from repro_torch.telemetry import trace as _trace
 from repro_torch.telemetry.events import Severity as _Sev, publish as _publish_event
 from repro_torch.telemetry.metrics import MetricsRegistry, StatsView
+from repro_torch.sharding.rules import Sharding, gather_tree
 from repro_torch import _tree
 from repro_torch.zns import CompletionBarrier, IoFuture, ZonedDevice, ZoneState
 
@@ -122,6 +137,41 @@ def _leaf_to_bytes(x) -> tuple[np.ndarray, str, tuple]:
     arr, dtype = _tree.leaf_to_host(x)
     flat = arr.reshape(-1).view(np.uint8)
     return (flat if _on_card(x) else flat.copy()), dtype, arr.shape
+
+
+def _mesh_of(tree) -> Optional[DeviceMesh]:
+    """The mesh of ``tree``'s DTensor leaves; None for plain leaves."""
+    meshes = {t.device_mesh for t in _tree.flatten(tree)[0] if isinstance(t, DTensor)}
+    if len(meshes) > 1:
+        raise CheckpointError(f"a tree with DTensor leaves on {len(meshes)} meshes")
+    return next(iter(meshes), None)
+
+
+def _mesh_barrier(mesh: DeviceMesh) -> None:
+    """Return once every rank of ``mesh`` has called this (a one-element
+    all-reduce over the mesh; other ranks of the process group take no
+    part)."""
+    one = torch.zeros(1, device=mesh.device_type)
+    DTensor.from_local(one, mesh, [Partial()] * mesh.ndim, run_check=False).full_tensor()
+
+
+def _shard(full: torch.Tensor, sh: Sharding, dest: torch.device) -> DTensor:
+    """This rank's shard of a whole host leaf, copied to ``dest`` and laid
+    out by ``sh`` (DTensor's order: mesh dims major to minor)."""
+    if sh.mesh.device_type != dest.type:
+        raise CheckpointError(f"a {sh.mesh.device_type} mesh for a restore onto {dest}")
+    local = full
+    for j, pl in enumerate(sh.placements):
+        if isinstance(pl, Shard):
+            n = sh.mesh.size(j)
+            if local.shape[pl.dim] % n:
+                raise CheckpointError(
+                    f"a leaf of shape {tuple(full.shape)} does not divide over "
+                    f"{sh.spec} on the mesh")
+            local = local.chunk(n, dim=pl.dim)[sh.mesh.get_local_rank(j)]
+    local = local.to(dest, copy=True, memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, sh.mesh, sh.placements,
+                              run_check=False, shape=full.shape, stride=full.stride())
 
 
 def _leaf_from_bytes(raw, dtype: str, shape: tuple) -> torch.Tensor:
@@ -321,9 +371,22 @@ class ZonedCheckpointStore:
         """Append a checkpoint synchronously; returns its manifest. The
         payload transfers still move through the completion ring in parallel
         (distinct payload zones overlap) — this just blocks at the commit
-        point, then garbage-collects."""
-        manifest = self.save_async(step, tree).result()
-        self.gc()
+        point, then garbage-collects. DTensor leaves (all on one mesh) are
+        gathered whole: every rank of their mesh calls this, the mesh's
+        first rank writes, and the others wait for it and re-read the
+        manifests it committed. A tree of plain leaves is written by the
+        calling process alone, with no collective."""
+        mesh = _mesh_of(tree)
+        tree = gather_tree(tree)
+        writes = mesh is None or dist.get_rank() == int(mesh.mesh.flatten()[0])
+        if writes:
+            manifest = self.save_async(step, tree).result()
+            self.gc()
+        if mesh is not None and mesh.size() > 1:
+            _mesh_barrier(mesh)
+            if not writes:
+                self._reload()
+                manifest = self._find_manifest(step)
         return manifest
 
     def save_async(self, step: int, tree: Any) -> CheckpointTicket:
@@ -334,10 +397,14 @@ class ZonedCheckpointStore:
         manifest append is submitted only after every payload completion has
         retired, and the ticket resolves with the manifest once the commit
         record is durable. GC is deliberately NOT run here — call
-        :meth:`gc` (or use :meth:`save`) from the training thread.
+        :meth:`gc` (or use :meth:`save`) from the training thread. The
+        leaves are plain: a sharded tree goes through :meth:`save`, which
+        gathers it.
         """
         t0 = time.monotonic()
         leaves, treedef = _tree.flatten_with_path(tree)
+        if any(isinstance(leaf, DTensor) for _, leaf in leaves):
+            raise CheckpointError("save_async takes plain leaves; save() gathers DTensors")
         payloads: list[tuple[str, np.ndarray, str, tuple]] = []
         crc = 0
         t_copy = t_crc = 0.0
@@ -515,6 +582,12 @@ class ZonedCheckpointStore:
         return ids
 
     # ---------------------------------------------------------------- read
+    def _reload(self) -> None:
+        """Re-scan the whole manifest zone (a reader's view of commits that
+        another process appended to the same file)."""
+        self.device.zone(0).write_pointer = 0
+        self._recover()
+
     def _recover(self) -> None:
         """Scan the manifest zone for valid commit records (crash recovery).
         Covers both the live-device case and a file-backed reopen, where the
@@ -616,8 +689,10 @@ class ZonedCheckpointStore:
         zones overlap on their virtual clocks — and this blocks at the join).
 
         ``like`` supplies the treedef (e.g. abstract state); each leaf lands
-        on ``torch_device`` (default: the store's). ``shardings`` has no
-        counterpart in the port until it has a device mesh, and raises.
+        on ``torch_device`` (default: the store's), or, with ``shardings``
+        (a :class:`~repro_torch.sharding.rules.Sharding` tree matching
+        ``like``), as a DTensor on its mesh of which each rank copies only
+        its own shard to ``torch_device``.
         """
         return self.restore_async(step, like=like, shardings=shardings,
                                   torch_device=torch_device).result()
@@ -628,10 +703,6 @@ class ZonedCheckpointStore:
         """Put every leaf's read in flight and return a ticket; the checksum
         verify, pytree assembly and the copies to ``torch_device`` run in the
         caller's thread at ``result()`` time."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "shardings: the port restores onto one torch device; "
-                "sharded restore waits for the port of repro.sharding")
         dest = self.torch_device if torch_device is None \
             else resolve_device(torch_device)
         if like is None:
@@ -702,7 +773,20 @@ class ZonedCheckpointStore:
                 raise CheckpointError(
                     f"leaf count mismatch: ckpt {len(arrays)} vs like "
                     f"{len(flat_like)}")
-            if dest.type != "cpu":
+            if shardings is not None:
+                shs = _tree.flatten(shardings, is_leaf=lambda x: isinstance(x, Sharding))[0]
+                if len(shs) != len(arrays):
+                    raise CheckpointError(
+                        f"{len(shs)} shardings for {len(arrays)} leaves")
+                t = time.monotonic()
+                for i, sh in enumerate(shs):
+                    arrays[i] = _shard(arrays[i], sh, dest)
+                if dest.type != "cpu":
+                    for a in arrays:
+                        self.h2d.add(a.to_local().nbytes)
+                    torch.cuda.synchronize(dest)
+                self._h_phase["to_device"].observe(time.monotonic() - t)
+            elif dest.type != "cpu":
                 t = time.monotonic()
                 for i, e in enumerate(entries):
                     arrays[i] = arrays[i].to(dest)

@@ -8,6 +8,12 @@ the batch splits into micro-batches as the reference's
 whose gradients are summed in micro-batch order into float32 accumulators
 that start at zero, then divided by ``accum``.
 
+Sharded, the state's leaves are DTensors (``Trainer``'s ``state_shardings``)
+and the batch is split over the data axes: each micro-batch holds the same
+rows as on one device and is laid out as the batch was, every gradient is
+laid out as its parameter (the FSDP reduce-scatter), and the accumulators,
+moments and error-feedback residuals carry their parameter's placements.
+
 The reference's step is a pure function of (state, batch). This one writes
 the new parameters, moments, error-feedback residual and step counter into
 the state it is given and returns that same state (PyTorch's optimizer
@@ -20,6 +26,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models import loss_fn, param_specs
 from repro_torch.models.config import ModelConfig
@@ -69,8 +76,32 @@ def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict):
     live = [p.detach().requires_grad_(True) for p in leaves]
     loss, metrics = loss_fn(cfg, _tree.unflatten(treedef, live), batch)
     # a leaf the loss does not reach gets a zero gradient, as under JAX
-    grads = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
-    return loss.detach(), {k: t.detach() for k, t in metrics.items()}, list(grads)
+    grads = torch.autograd.grad(_whole(loss), live, allow_unused=True,
+                                materialize_grads=True)
+    grads = [_laid_out_as(g, p) for g, p in zip(grads, live)]
+    return (_whole(loss.detach()), {k: _whole(t.detach()) for k, t in metrics.items()},
+            grads)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value, the same plain tensor on every rank."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _laid_out_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A sharded leaf's gradient laid out as the leaf (a Partial sum over
+    the data axes is reduce-scattered)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _rows(x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``lo:hi`` of the whole batch; a DTensor's are laid out as it is."""
+    if not isinstance(x, DTensor):
+        return x[lo:hi]
+    whole = x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+    return whole[lo:hi].redistribute(x.device_mesh, x.placements)
 
 
 def _micro_batches(batch: dict, accum: int) -> list[dict]:
@@ -78,7 +109,8 @@ def _micro_batches(batch: dict, accum: int) -> list[dict]:
     if B % accum:
         raise ValueError(f"batch {B} is not a multiple of grad_accum {accum}")
     mb = B // accum
-    return [{k: x[i * mb:(i + 1) * mb] for k, x in batch.items()} for i in range(accum)]
+    return [{k: _rows(x, i * mb, (i + 1) * mb) for k, x in batch.items()}
+            for i in range(accum)]
 
 
 def make_train_step(cfg: ModelConfig, hyper: TrainHyper):
@@ -92,7 +124,7 @@ def make_train_step(cfg: ModelConfig, hyper: TrainHyper):
             loss, _, grads = loss_and_grads(cfg, params, batch)
             grads = [g.float() for g in grads]
         else:
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in _tree.leaves(params)]
             loss_sum = 0.0
             for mb in _micro_batches(batch, accum):

@@ -7,7 +7,8 @@ Fault-tolerance contract:
     the train state via `step`);
   * checkpoint writes are atomic (manifest-commit, see checkpoint.py), so a
     crash mid-save leaves the previous checkpoint live;
-  * a restore lands on the trainer's torch device.
+  * a restore lands on the trainer's torch device, laid out by
+    ``state_shardings`` when the state is sharded.
 """
 from __future__ import annotations
 
@@ -16,14 +17,22 @@ from dataclasses import dataclass, field
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch._device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import abstract_params, init_params
+from repro_torch.sharding.rules import distribute_tree
 from repro_torch.train.checkpoint import ZonedCheckpointStore
 from repro_torch.train.step import TrainHyper, make_train_step, train_state_specs
 
 __all__ = ["TrainerConfig", "Trainer"]
+
+
+def _prints() -> bool:
+    """Rank 0 of a process group (or the only process) prints."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 @dataclass
@@ -37,16 +46,28 @@ class TrainerConfig:
 
 class Trainer:
     """The reference's trainer on one torch ``device`` (default "cuda").
-    The reference also takes a device mesh and state shardings; the port
-    has no sharded training yet (ROADMAP.md, Queue 1 item 4), so neither
-    is taken."""
+
+    With ``mesh`` (a ("data", "model") DeviceMesh) and ``state_shardings``
+    (``param_shardings(train_state_specs(cfg), mesh, rules)``), the state is
+    a tree of DTensors laid out by those shardings, initialized or restored,
+    and each batch is split over "data" (``Shard(0)``) and whole over the
+    other mesh axes. Every rank passes the same batches. Run it under
+    ``use_rules(rules_for("train", cfg, mesh))``, as the launcher
+    does."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
-                 store: Optional[ZonedCheckpointStore] = None, device="cuda"):
+                 store: Optional[ZonedCheckpointStore] = None, device="cuda",
+                 mesh=None, state_shardings=None):
+        if (mesh is None) != (state_shardings is None):
+            raise ValueError("mesh and state_shardings go together")
         self.cfg = cfg
         self.tcfg = tcfg
         self.store = store
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a {self.device.type} trainer")
+        self.mesh = mesh
+        self.state_shardings = state_shardings
         self.step_fn = make_train_step(cfg, tcfg.hyper)
         self.state = None
         self.history: list[dict] = []
@@ -57,15 +78,32 @@ class Trainer:
         specs = train_state_specs(self.cfg)
         if self.store is not None and self.store.latest_step() is not None:
             self.state = self.store.restore(like=abstract_params(specs),
+                                            shardings=self.state_shardings,
                                             torch_device=self.device)
-            return int(self.state["step"])
+            return self._step()
         self.state = init_params(specs, self.tcfg.seed, self.device)
+        if self.state_shardings is not None:
+            self.state = distribute_tree(self.state, self.state_shardings)
         return 0
+
+    def _step(self) -> int:
+        step = self.state["step"]
+        return int(step.full_tensor() if isinstance(step, DTensor) else step)
 
     def save(self) -> None:
         if self.store is not None:
-            self.store.save(int(self.state["step"]), self.state)
+            self.store.save(self._step(), self.state)
             self.store.flush()
+
+    def _distribute(self, batch: dict) -> dict:
+        """A host batch on the device; with a mesh, split over "data"."""
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        if self.mesh is None:
+            return batch
+        lay = [Shard(0) if name == "data" else Replicate()
+               for name in self.mesh.mesh_dim_names]
+        return {k: distribute_tensor(v, self.mesh, lay, src_data_rank=None)
+                for k, v in batch.items()}
 
     # ----------------------------------------------------------------- run
     def run(self, batches: Iterable[dict],
@@ -81,10 +119,11 @@ class Trainer:
                 batch = next(it)
             except StopIteration:
                 break
-            batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+            batch = self._distribute(batch)
             t0 = time.perf_counter()
             self.state, metrics = self.step_fn(self.state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics = {k: float(v.full_tensor() if isinstance(v, DTensor) else v)
+                       for k, v in metrics.items()}
             metrics["step_seconds"] = time.perf_counter() - t0
             metrics["step"] = step
             self.history.append(metrics)
@@ -93,7 +132,7 @@ class Trainer:
                 on_step(step, metrics)
             if (step + 1) % self.tcfg.checkpoint_every == 0:
                 self.save()
-            if (step + 1) % self.tcfg.log_every == 0:
+            if (step + 1) % self.tcfg.log_every == 0 and _prints():
                 print(f"[train] step={step + 1} loss={metrics.get('loss', 0):.4f} "
                       f"({metrics['step_seconds'] * 1e3:.0f} ms)")
         self.save()

@@ -363,10 +363,61 @@ def test_counters_and_phase_times():
 
 
 def test_shardings_not_ported():
+    """``shardings`` is ported (a Sharding a leaf; ``tests/test_torch_sharding.py``
+    restores across meshes on 8 ranks); a tree that gives a leaf none is
+    refused."""
     store = ZonedCheckpointStore(device=zoned_pair()[1], torch_device="cpu")
     store.save(1, {"w": torch.zeros(4)})
-    with pytest.raises(NotImplementedError, match="shardings"):
+    with pytest.raises(CheckpointError, match="shardings"):
         store.restore(like={"w": torch.zeros(4)}, shardings={"w": None})
+
+
+def test_restore_with_shardings_on_a_mesh_of_one_rank():
+    """One process: a 1 x 1 mesh from make_local_mesh, the leaves restored as
+    DTensors on it, equal to the saved ones."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.rules import TRAIN_RULES, named_sharding_for
+    store = ZonedCheckpointStore(device=zoned_pair()[1], torch_device="cpu")
+    tree = {"w": torch.arange(24, dtype=torch.float32).reshape(4, 6),
+            "step": torch.tensor(3, dtype=torch.int32)}
+    store.save(1, tree)
+    mesh = make_local_mesh(1, 1, device="cpu")
+    try:
+        sh = {"w": named_sharding_for((4, 6), ("embed", "mlp"), mesh, TRAIN_RULES),
+              "step": named_sharding_for((), (), mesh, TRAIN_RULES)}
+        got = store.restore(like=tree, shardings=sh)
+        for k, t in tree.items():
+            assert isinstance(got[k], DTensor) and torch.equal(got[k].full_tensor(), t)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_save_gathers_dtensors_and_save_async_refuses_them():
+    """One process: a tree of DTensors on a 1 x 1 mesh saves through
+    ``save`` (gathered, the mesh's only rank writing) and restores plain,
+    equal to the saved values; ``save_async`` refuses DTensor leaves."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.rules import TRAIN_RULES, distribute_tree, named_sharding_for
+    store = ZonedCheckpointStore(device=zoned_pair()[1], torch_device="cpu")
+    tree = {"w": torch.arange(24, dtype=torch.float32).reshape(4, 6),
+            "step": torch.tensor(3, dtype=torch.int32)}
+    mesh = make_local_mesh(1, 1, device="cpu")
+    try:
+        sh = {"w": named_sharding_for((4, 6), ("embed", "mlp"), mesh, TRAIN_RULES),
+              "step": named_sharding_for((), (), mesh, TRAIN_RULES)}
+        placed = distribute_tree(tree, sh)
+        with pytest.raises(CheckpointError, match="plain leaves"):
+            store.save_async(1, placed)
+        store.save(2, placed)
+        assert store.steps() == [2]
+        got = store.restore(like=tree)
+        for k, t in tree.items():
+            assert torch.equal(got[k], t), k
+    finally:
+        dist.destroy_process_group()
 
 
 def test_host_leaf_may_change_while_save_in_flight():

@@ -24,7 +24,9 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.zns",
            "repro_torch.data", "repro_torch.train", "repro_torch.faults.crash",
            "repro_torch.models", "repro_torch.configs", "repro_torch.serve.step",
            "repro_torch.train.optimizer", "repro_torch.train.step",
-           "repro_torch.train.trainer", "repro_torch.launch.train"]
+           "repro_torch.train.trainer", "repro_torch.launch.train",
+           "repro_torch.sharding", "repro_torch.sharding.rules",
+           "repro_torch.sharding.pipeline", "repro_torch.launch.mesh"]
 
 
 def test_port_import_leaves_jax_and_repro_out():
@@ -47,6 +49,9 @@ def test_port_sources_import_no_jax_or_repro():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 24
     assert ROOT / "src" / "repro_torch" / "serve" / "kv_zones.py" in files
+    for new in ("sharding/__init__.py", "sharding/rules.py", "sharding/pipeline.py",
+                "launch/mesh.py"):
+        assert ROOT / "src" / "repro_torch" / new in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []

@@ -457,8 +457,10 @@ def test_launch_ckpt_geometry_holds_the_state(arch):
 
 
 def test_launch_train_refuses_a_mesh():
+    """A mesh of several ranks needs their process group (torchrun's, or
+    the caller's); ``tests/test_torch_sharding.py`` runs one."""
     from repro_torch.launch import train as launch
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         launch.build(launch.parse_args(["--reduced", "--data", "2", "--device", "cpu"]))
 
 
