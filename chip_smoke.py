@@ -115,6 +115,26 @@ Phases, one JSON line each; any failed phase exits non-zero:
             state restored with shardings= onto the mesh bit for bit; a
             one-stage pipeline_apply. No collective crosses between cards,
             and no kernel of the port runs
+  dryrun    repro_torch.launch.dryrun on fake process groups and meta
+            tensors, the mesh on the card's device type: granite-8b's
+            train_4k and decode_32k cells on 16 x 16 (256 ranks) and
+            decode_32k on 2 x 16 x 16 (512) at published widths and depth,
+            each ok with rank 0's argument bytes equal to its shards' sum
+            by arithmetic from the specs and param_shardings; flops and
+            collective bytes a rank, seconds. Then h2o-danube-1.8b's train
+            step at the train phase's shape on a fake group of one rank:
+            no collective, and its predicted peak (arguments + temporaries)
+            beside the mesh phase's measured peak for the same step (the
+            ratio against DRYRUN_PEAK_BAND, reported), its flops beside the
+            train line's bound count. No kernel runs
+  examples  examples/torch_*.py as subprocesses on the card at their
+            defaults (the train example at 800 steps): each exits 0 with
+            its own check (tiers equal the host's count; every attend
+            within 2e-5 of the plain version; the loss falling), the
+            quickstart's kernel tier launches filtered_reduce, the serve
+            example one paged_attention an attend, the train example's
+            loss ends below ln(vocab); their launches count into the
+            kernels line
   timing    kernel, plain-version and library times on the card (CUDA events),
             with the device kernels one call runs and their launches a call
             (torch.profiler; 1 for a zone-filter row, 2 for the paged row,
@@ -309,6 +329,18 @@ MESH_TRAIN_STEPS = 2
 MESH_LOSS_RTOL, MESH_TOL, MESH_FAULT = 2e-2, 5e-2, 0.5
 MESH_NEW = 8
 MESH_PIPE = dict(n_micro=4, micro_batch=8, width=1024)
+# dryrun: production cells at published widths and depth on fake groups of
+# 256 / 512 ranks (arch, shape, multi-pod); the 1 x 1 peak prediction's band
+# (PERF.md states it before the card run)
+DRYRUN_CELLS = (("granite-8b", "train_4k", False), ("granite-8b", "decode_32k", False),
+                ("granite-8b", "decode_32k", True))
+DRYRUN_PEAK_BAND = (0.85, 1.15)
+# examples: each examples/torch_*.py with its arguments; the train example
+# runs 800 steps, where the loss falls below ln(vocab) (at its default 200
+# it does not, nor does the reference's)
+EXAMPLES = (("torch_quickstart.py", ()), ("torch_csd_pushdown_analytics.py", ()),
+            ("torch_serve_zoned_kv.py", ()), ("torch_train_zoned_lm.py", ("--steps", "800")))
+EXAMPLE_ATTENDS = 40 + 30        # torch_serve_zoned_kv.py's decode steps, one attend each
 # one granite-8b layer's logical axes (granite_layer_state's tree), as
 # src/repro/models/attention.py, common.py give them
 LAYER_AXES = {"attn": {"wq": ("embed", "q_heads", "head_dim"),
@@ -2412,6 +2444,7 @@ def phase_train(torch, cfgs, models, api, launch, step_mod, opt_mod, trainer_mod
                TRAIN_ARCH + " loss check": {"num_layers": RESUME_LAYERS},
                TRAIN_ARCH + " exact resume": {"num_layers": RESUME_LAYERS}},
          seconds=time.perf_counter() - t_phase)
+    return main_run
 
 
 # ------------------------------------------------------------------ the mesh
@@ -2737,6 +2770,186 @@ def phase_mesh(torch, cfgs, models, api, serve_mod, step_mod, opt_mod, trainer_m
                MODEL_ARCH + " serve": "none (36 layers, published widths)",
                MODEL_ARCH + " restore": "one layer's train state, as the checkpoint phase"},
          seconds=time.perf_counter() - t_phase)
+    return train
+
+
+# ------------------------------------------------------------ the dry run
+
+def dryrun_argument_bytes(torch, dryrun, rules_mod, models, api, step_mod, tree_mod, cfg,
+                          shape, axes, preset):
+    """Rank 0's bytes of a cell's arguments by arithmetic, apart from the
+    DTensors the dry run lays out: each ParamSpec's (and input's) shape
+    divided along each dim by the sizes of the mesh axes its PartitionSpec
+    names (param_shardings' divisibility-degraded specs), on a stand-in of
+    the production mesh (axis names and sizes). Train: the state and the
+    batch; prefill: the params and the batch less its labels; decode: the
+    params, the cache, the [B, 1] tokens and the int32 position."""
+    from types import SimpleNamespace
+    from repro_torch.models.params import ParamSpec
+    standin = SimpleNamespace(axis_names=tuple(axes), devices=np.empty(tuple(axes.values())))
+    rules, _, batch_axes, _ = dryrun.cell_rules(cfg, shape, standin, preset)
+
+    def local(dims, spec, itemsize):
+        n = itemsize
+        for d, entry in zip(dims, spec):
+            k = math.prod(axes[a] for a in ((entry,) if isinstance(entry, str) else entry or ()))
+            check(d % k == 0, f"{dims} {spec}: dim {d} over {k} shards")
+            n *= d // k
+        return n
+
+    def spec_bytes(tree):
+        leaves = tree_mod.flatten(tree, is_leaf=lambda x: isinstance(x, ParamSpec))[0]
+        return sum(local(s.shape, rules_mod.logical_to_spec(rules, s.axes, s.shape, standin),
+                         s.dtype.itemsize) for s in leaves)
+
+    def batch_bytes(specs):
+        return sum(local(t.shape, (batch_axes,) + (None,) * (t.dim() - 1), t.element_size())
+                   for t in specs.values())
+    state = step_mod.train_state_specs(cfg)
+    if shape.kind == "train":
+        return spec_bytes(state) + batch_bytes(api.train_input_specs(cfg, shape))
+    if shape.kind == "prefill":
+        inputs = api.train_input_specs(cfg, shape)
+        inputs.pop("labels")
+        return spec_bytes(state["params"]) + batch_bytes(inputs)
+    tokens = {"tokens": torch.empty((shape.global_batch, 1), dtype=torch.int32, device="meta")}
+    return (spec_bytes(state["params"])
+            + spec_bytes(models.cache_specs(cfg, shape.global_batch, shape.seq_len))
+            + batch_bytes(tokens) + 4)
+
+
+def phase_dryrun(torch, cfgs, models, api, step_mod, tree_mod, counted, card, mesh_train_out,
+                 train_out):
+    """The dry run (repro_torch.launch.dryrun) on fake process groups and
+    meta tensors, on the card's device type. (a) DRYRUN_CELLS through
+    run_cell at published widths and depth: each must end ok with rank 0's
+    argument bytes equal to dryrun_argument_bytes' arithmetic; flops, the
+    collective census and seconds a cell. (b) h2o-danube-1.8b's train step
+    at the train and mesh phases' shape (4 x 4,096 tokens, 2 micro-batches)
+    on a fake group of one rank: its census must be empty; its predicted
+    peak (arguments + temporaries) beside the mesh phase's measured
+    torch.cuda.max_memory_allocated for the same step (the ratio and
+    DRYRUN_PEAK_BAND reported, not held), and its flops beside the train
+    line's bound count. No kernel launches (meta tensors)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.config import SHAPES, ShapeSpec
+    import repro_torch.sharding.rules as rules_mod
+    t_phase = time.perf_counter()
+    for fn in counted:
+        fn.launches = 0
+    cells = []
+    for arch, shape_name, multi in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape_name, multi, device=DEVICE)
+        check(rec["status"] == "ok",
+              f"dry run {arch} {shape_name} {rec['mesh']}: {rec.get('error')}\n"
+              f"{rec.get('traceback', '')[-1500:]}")
+        cfg, shape = cfgs.get_config(arch), SHAPES[shape_name]
+        axes = {"pod": 2, "data": 16, "model": 16} if multi else {"data": 16, "model": 16}
+        want = dryrun_argument_bytes(torch, dryrun, rules_mod, models, api, step_mod, tree_mod,
+                                     cfg, shape, axes, rec.get("preset") or "tp")
+        got = rec["memory_analysis"]["argument_size_in_bytes"]
+        check(got == want, f"dry run {arch} {shape_name} {rec['mesh']}: argument bytes {got}, "
+                           f"the shards' sum {want}")
+        cells.append(dict(
+            arch=arch, shape=shape_name, mesh=rec["mesh"], status=rec["status"],
+            step=rec["step"], rules=rec["rules"], preset=rec.get("preset"),
+            grad_accum=rec.get("grad_accum"), flops_per_rank=rec["cost_analysis"]["flops"],
+            collective_bytes_per_rank=rec["collectives"]["total_bytes"],
+            collective_wire_bytes_per_rank=rec["collectives"]["total_wire_bytes"],
+            collective_count=rec["collectives"]["total_count"],
+            collectives={k: v for k, v in rec["collectives"].items() if isinstance(v, dict)},
+            memory_analysis=rec["memory_analysis"], argument_bytes_by_arithmetic=want,
+            trace_seconds=rec["trace_seconds"], total_seconds=rec["total_seconds"]))
+
+    cfg = cfgs.get_config(TRAIN_ARCH)
+    shape = ShapeSpec("mesh_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t = time.perf_counter()
+    with dryrun.fake_group(1):
+        traced, meta = dryrun.build_cell(cfg, shape, make_local_mesh(1, 1, device=DEVICE),
+                                         grad_accum=TRAIN_ACCUM, preset="tp")
+    one_s = time.perf_counter() - t
+    mem = traced.memory_analysis
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    measured = mesh_train_out["max_memory_allocated"]["sharded"]
+    ratio = predicted / measured
+    census = traced.collectives["total_count"]
+    check(census == 0, f"the 1 x 1 dry run counts {census} collectives: {traced.collectives}")
+    flops, bound_ops = traced.cost_analysis["flops"], train_out["operations"]
+    one = dict(arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ, meta=meta,
+               memory_analysis=mem, predicted_peak_bytes=predicted,
+               measured_peak_bytes=measured, measured_by="the mesh phase's sharded Trainer "
+               "(torch.cuda.max_memory_allocated)", predicted_over_measured=ratio,
+               band=DRYRUN_PEAK_BAND,
+               within_band=DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+               collective_count=census, flops=flops, train_bound_operations=bound_ops,
+               flops_over_bound_operations=flops / bound_ops,
+               note="the bound leaves out remat's second forward and counts only the causal "
+                    "half of attention; the dry run counts every product the step runs",
+               trace_seconds=traced.seconds, seconds=one_s)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    check(not any(launches.values()), f"kernels launched by the dry run: {launches}")
+    emit("dryrun", card=card, cells=cells, one_by_one=one, kernel_launches=launches,
+         note="counts, not speeds: bytes, FLOPs and collectives are rank 0's on a fake group",
+         seconds=time.perf_counter() - t_phase)
+
+
+# ------------------------------------------------------------ the examples
+
+EXAMPLE_RUNNER = r"""
+import json, runpy, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.kernels.zone_filter import kernel as zf
+from repro_torch.kernels.paged_attn import kernel as pa
+counted = (zf.filtered_reduce, zf.filtered_reduce_batched, pa.paged_attention_kernel)
+for fn in counted:
+    fn.launches = 0
+path = sys.argv[2]
+sys.argv = [path] + sys.argv[3:]
+runpy.run_path(path, run_name="__main__")
+print(json.dumps({"launches": {fn.__name__: fn.launches for fn in counted}}))
+"""
+
+
+def phase_examples(card):
+    """Each examples/torch_*.py as a subprocess on the card (its default
+    --device cuda), through a runner that sets the kernel wrappers' counts
+    to 0 first and prints them last. Each must exit 0 with its own check
+    met (the quickstart's tiers equal the host's count, the serve example's
+    attends within 2e-5 of the plain version, the train example's loss
+    below its first), and: the quickstart's kernel tier launches
+    filtered_reduce, the serve example launches paged_attention once an
+    attend, and the train example's loss ends below ln(vocab). Returns the
+    examples' launches, which count into the kernels line."""
+    t_phase = time.perf_counter()
+    runs, total = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args in EXAMPLES:
+            if name == "torch_train_zoned_lm.py":
+                args = args + ("--ckpt", str(Path(tmp) / "lm_ckpt.zns"))
+            t = time.perf_counter()
+            out = subprocess.run([sys.executable, "-c", EXAMPLE_RUNNER, str(ROOT / "src"),
+                                  str(ROOT / "examples" / name), *args],
+                                 capture_output=True, text=True, timeout=600, cwd=ROOT)
+            seconds = time.perf_counter() - t
+            check(out.returncode == 0,
+                  f"{name} exited {out.returncode}: {out.stderr[-3000:]}")
+            lines = out.stdout.strip().splitlines()
+            launches = json.loads(lines[-1])["launches"]
+            runs[name] = dict(args=list(args), seconds=seconds, launches=launches,
+                              last_lines=lines[-6:-1])
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+    quick = runs["torch_quickstart.py"]["launches"]
+    check(quick["filtered_reduce"] >= 1, f"the quickstart's kernel tier launched {quick}")
+    serve = runs["torch_serve_zoned_kv.py"]["launches"]
+    check(serve["paged_attention_kernel"] == EXAMPLE_ATTENDS,
+          f"the serve example launched {serve}, not one an attend ({EXAMPLE_ATTENDS})")
+    train = runs["torch_train_zoned_lm.py"]["last_lines"]
+    check("below ln(vocab): True" in train, f"the train example's loss: {train}")
+    emit("examples", card=card, runs=runs, kernel_launches=total,
+         seconds=time.perf_counter() - t_phase)
+    return total
 
 
 def profiled_ms(torch, fn, reps=10, warmup=3, tries=1):
@@ -3035,11 +3248,16 @@ def main():
         counted = (zf_kernel.filtered_reduce, zf_kernel.filtered_reduce_batched,
                    pa_kernel.paged_attention_kernel)
         phase_model(torch, cfgs, models, api, serve_mod, tree_mod, counted, smi_line)
-        phase_train(torch, cfgs, models, api, launch, step_mod, opt_mod, trainer_mod, train_mod,
-                    tree_mod, ZonedDevice, counted, smi_line)
-        phase_mesh(torch, cfgs, models, api, serve_mod, step_mod, opt_mod, trainer_mod,
-                   train_mod, tree_mod, ZonedDevice, counted, smi_line)
+        train_out = phase_train(torch, cfgs, models, api, launch, step_mod, opt_mod,
+                                trainer_mod, train_mod, tree_mod, ZonedDevice, counted, smi_line)
+        mesh_train_out = phase_mesh(torch, cfgs, models, api, serve_mod, step_mod, opt_mod,
+                                    trainer_mod, train_mod, tree_mod, ZonedDevice, counted,
+                                    smi_line)
         del data
+        phase_dryrun(torch, cfgs, models, api, step_mod, tree_mod, counted, smi_line,
+                     mesh_train_out, train_out)    # after mesh: one default group a process
+        for kname, n in phase_examples(smi_line).items():
+            launches[{"paged_attention_kernel": "paged_attention"}.get(kname, kname)] += n
     except PhaseFailed as e:
         emit("failed", error=str(e))
         return 1

@@ -208,10 +208,14 @@ def _grouped_attend(cfg, q, k, v, valid=None, cap=None):
     Returns [B, 1, H, hd] in q's dtype. A DTensor cache whose slot dim is
     whole attends on local blocks of (batch, heads), as
     :func:`chunked_attention`; one sharded over slots (flash-decode) goes
-    op by op, DTensor reducing the softmax across the slot shards."""
+    op by op, DTensor reducing the softmax across the slot shards. There
+    the slots hold the model axis, so q's heads are whole first: split into
+    (KV, G), heads sharded over more ranks than KV have no layout."""
     fn = functools.partial(_grouped, cap=cap)
     if 1 not in sharded_dims(k):
         fn = local_region(fn, k, ins=("same",) * 3 + (None,), outs=("same",), keep=(0, 2))
+    else:
+        q = shard_act(q, ("act_batch", None, None, None))
     return fn(q, k, v, valid)
 
 

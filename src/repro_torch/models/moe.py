@@ -102,7 +102,10 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor,
         hs = silu(xs @ sh_gate.to(dt)) * (xs @ sh_up.to(dt))
         out = out + contract(hs, sh_down.to(dt))
 
-    out = shard_act(out, ("act_groups", None, None))
+    # back to [B, L, d] from groups laid out as the batch is: groups sharded
+    # over more ranks than the batch rows (fine-grained experts) have no
+    # [B, L] layout, and DTensor's view would gather or mis-split them
+    out = shard_act(out, ("act_batch", None, None))
     out = shard_act(out.reshape(B, L, d), ("act_batch", "act_seq", "act_embed"))
     return out, aux
 

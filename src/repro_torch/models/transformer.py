@@ -476,16 +476,23 @@ def decode_step(cfg: ModelConfig, params: dict, cache: list, tokens: torch.Tenso
 
 # -------------------------------------------------------------------- loss
 
+def _lse_and_gold(logits: torch.Tensor, labels: torch.Tensor):
+    """logsumexp over the vocab ([B, L]) and each label's logit ([B, L, 1])."""
+    return torch.logsumexp(logits, dim=-1), torch.gather(logits, -1, labels)
+
+
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = True):
     """Next-token cross-entropy (f32 math over compute-dtype logits);
     differentiable, ``remat`` as in :func:`forward`."""
     logits, aux, _ = forward(cfg, params, batch, remat=remat)
     labels = batch["labels"].long()
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    # [B, L, 1] until it meets lse: a vocab-sharded gather's masked partial
-    # sum must be reduced in the gather's own shape
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])
+    # on DTensors, each rank's (batch, seq) block with the vocab whole: the
+    # gather's backward (new_zeros of the logits' shape) would otherwise
+    # make the whole batch's logits on every rank
+    lse, gold = local_region(_lse_and_gold, logits, ins=("same", {0: 0, 1: 1}),
+                             outs=({0: 0, 1: 1}, {0: 0, 1: 1}), keep=(0, 1))(
+        logits, labels.clamp(min=0)[..., None])
     mask = (labels >= 0).float()
     ce = ((lse[..., None] - gold)[..., 0] * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return ce + aux, {"ce": ce, "aux": aux}

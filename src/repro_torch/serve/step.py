@@ -24,7 +24,9 @@ def make_serve_step(cfg: ModelConfig, sample: str = "greedy"):
         Returns (next_token [B, 1] int32 on the device, logits [B, V],
         cache), the cache updated in place."""
         logits, cache = decode_step(cfg, params, cache, tokens, pos)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        # a non-negative dim: DTensor's argmax over a sharded vocab gathers
+        # along ``dim``, and a negative one mis-shapes a one-row batch
+        nxt = torch.argmax(logits, dim=logits.dim() - 1).to(torch.int32)[:, None]
         return nxt, logits, cache
 
     return serve_step

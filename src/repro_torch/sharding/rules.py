@@ -284,9 +284,14 @@ def spec_to_placements(spec: Sequence[MeshAxes], mesh: DeviceMesh) -> tuple[Plac
     """DTensor placements (one per mesh dim) of ``spec`` on ``mesh``: mesh
     dim ``j`` takes ``Shard(i)`` when entry ``i`` names its axis, else
     ``Replicate()``. An entry's axes must stand in the mesh's order, the
-    order in which DTensor splits a dim, and name axes the mesh has."""
-    names = list(_axis_sizes(mesh))
+    order in which DTensor splits a dim, and name axes the mesh has. A mesh
+    dim of one rank splits nothing and stays ``Replicate()``: DTensor's
+    view rules refuse to merge a sharded dim of size 1 (a 1-KV-head weight
+    on a 1 x 1 mesh), where the rank holds the whole dim either way."""
+    sizes = _axis_sizes(mesh)
+    names = list(sizes)
     placements: list[Placement] = [Replicate()] * len(names)
+    used: set[int] = set()
     for i, entry in enumerate(spec):
         if entry is None:
             continue
@@ -301,9 +306,11 @@ def spec_to_placements(spec: Sequence[MeshAxes], mesh: DeviceMesh) -> tuple[Plac
                 f"{spec}: dim {i} is sharded over {axes}, out of the mesh's "
                 f"order {names}; DTensor would lay the shards out otherwise")
         for j in dims:
-            if not isinstance(placements[j], Replicate):
+            if j in used:
                 raise ValueError(f"{spec}: mesh axis {names[j]!r} shards two dims")
-            placements[j] = Shard(i)
+            used.add(j)
+            if sizes[names[j]] > 1:
+                placements[j] = Shard(i)
     return tuple(placements)
 
 
@@ -341,15 +348,16 @@ def _is_sharding(x) -> bool:
 def distribute_tree(tree, shardings):
     """Each leaf of ``tree`` (the same full tensor on every rank) as a
     DTensor laid out by the matching :class:`Sharding`: every rank takes its
-    own shard, with no communication."""
+    own shard, with no communication. A meta leaf stays meta (its shard is
+    a meta tensor, as the dry run lays state out)."""
     from torch.distributed.tensor import distribute_tensor
 
     leaves, treedef = _tree.flatten(tree)
     shs = _tree.flatten(shardings, is_leaf=_is_sharding)[0]
     if len(shs) != len(leaves):
         raise ValueError(f"{len(leaves)} leaves but {len(shs)} shardings")
-    out = [distribute_tensor(t.to(sh.mesh.device_type), sh.mesh, sh.placements,
-                             src_data_rank=None)
+    out = [distribute_tensor(t if t.is_meta else t.to(sh.mesh.device_type), sh.mesh,
+                             sh.placements, src_data_rank=None)
            for t, sh in zip(leaves, shs)]
     return _tree.unflatten(treedef, out)
 

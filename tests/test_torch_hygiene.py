@@ -26,7 +26,8 @@ MODULES = ["repro_torch", "repro_torch.core", "repro_torch.zns",
            "repro_torch.train.optimizer", "repro_torch.train.step",
            "repro_torch.train.trainer", "repro_torch.launch.train",
            "repro_torch.sharding", "repro_torch.sharding.rules",
-           "repro_torch.sharding.pipeline", "repro_torch.launch.mesh"]
+           "repro_torch.sharding.pipeline", "repro_torch.launch.mesh",
+           "repro_torch.launch.dryrun"]
 
 
 def test_port_import_leaves_jax_and_repro_out():
@@ -47,10 +48,15 @@ def test_port_sources_import_no_jax_or_repro():
                          r"from repro\.|from repro import)", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [f.name for f in examples] == [
+        "torch_csd_pushdown_analytics.py", "torch_quickstart.py", "torch_serve_zoned_kv.py",
+        "torch_train_zoned_lm.py"]
+    files += examples
     assert len(files) > 24
     assert ROOT / "src" / "repro_torch" / "serve" / "kv_zones.py" in files
     for new in ("sharding/__init__.py", "sharding/rules.py", "sharding/pipeline.py",
-                "launch/mesh.py"):
+                "launch/mesh.py", "launch/dryrun.py"):
         assert ROOT / "src" / "repro_torch" / new in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
@@ -116,3 +122,16 @@ def test_pipeline_and_checkpoint_store_raise_when_cuda_is_absent(monkeypatch, tm
         cpu_store.restore(like={"w": torch.zeros(4)}, torch_device="cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tree_from_numpy({"w": np.zeros(4)})
+
+
+def test_dry_run_for_the_card_without_one_raises(monkeypatch):
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.run_cell("granite-8b", "train_4k", False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.run_cell("granite-8b", "train_4k", False, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.main(["--arch", "granite-8b", "--shape", "train_4k", "--out", "unused.jsonl"])
+    assert not dist.is_initialized()
