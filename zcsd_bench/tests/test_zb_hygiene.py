@@ -1,0 +1,50 @@
+"""Nothing of the benchmark imports JAX or the JAX package; the references
+import nothing but NumPy."""
+import ast
+import sys
+
+import pytest
+
+from zcsd_bench import harness, spec
+
+FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
+SOURCES = sorted(p for p in spec.HERE.rglob("*.py") if "__pycache__" not in p.parts)
+
+
+def top_level_imports(path):
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(spec.HERE)))
+def test_no_module_imports_jax_or_the_jax_package(path):
+    assert not top_level_imports(path) & FORBIDDEN
+
+
+@pytest.mark.parametrize("path", sorted((spec.HERE / "reference").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_a_reference_imports_numpy_alone(path):
+    assert top_level_imports(path) <= {"numpy", "__future__"}
+
+
+def test_names_are_compared_whole():
+    from zcsd_bench.run import forbidden_modules
+    assert forbidden_modules(["repro_torch", "repro_torch.core", "jaxtyping",
+                              "numpy"]) == []
+    assert forbidden_modules(["repro.core.csd", "jaxlib.xla_client", "flax",
+                              "jax"]) == ["flax", "jax", "jaxlib", "repro"]
+
+
+def test_a_run_loads_neither_jax_nor_the_jax_package(cell):
+    from zcsd_bench.run import forbidden_modules
+    before = {m.split(".")[0] for m in sys.modules}
+    harness.run_cell(cell("fig2-nvm.scan"), 5, 0.2, False, device="cpu")
+    after = {m.split(".")[0] for m in sys.modules}
+    assert "repro_torch" in after
+    assert not (after - before) & FORBIDDEN
+    assert set(forbidden_modules()) <= before
