@@ -1307,7 +1307,7 @@ def phase_pipeline(torch, ZonedDevice, array_mod, csd_mod, data_mod, zf_kernel, 
     ``PipelineStats`` the sum of each offload's bytes. The same bytes on a
     raid0 array through ``OffloadScheduler`` must give the same records.
     Times: host clock around each zone's two offloads, and each offload's
-    ``exec``/``h2d`` (and on the array its stages) from the CSD's history;
+    ``exec``/``h2d`` (and on the array its stages) from its stats;
     the last zone of each runs under the span tracer (``trace_ms``: each
     span's summed ms in its two offloads, by name)."""
     def traced_zone(pipe, z):
@@ -1353,6 +1353,13 @@ def phase_pipeline(torch, ZonedDevice, array_mod, csd_mod, data_mod, zf_kernel, 
     torch.cuda.reset_peak_memory_stats()
     pipe = data_mod.ZoneDataPipeline(store, batch=PIPE_BATCH, min_quality=PIPE_MIN_QUALITY,
                                      device=DEVICE)
+    # NvmCsd returns each command's stats and keeps none: keep the pipeline's
+    pipe_stats, run_command = [], pipe.csd.nvm_cmd_bpf_run
+
+    def kept_run(*args, **kw):
+        pipe_stats.append(run_command(*args, **kw))
+        return pipe_stats[-1]
+    pipe.csd.nvm_cmd_bpf_run = kept_run
     zones, kept, want_stats = [], [], dict(bytes_read_device=0, bytes_to_host=0,
                                            records_seen=0, records_kept=0, offloads=0)
 
@@ -1368,7 +1375,7 @@ def phase_pipeline(torch, ZonedDevice, array_mod, csd_mod, data_mod, zf_kernel, 
         want = expected(z)
         check(recs.shape == want.shape, f"zone {z}: kept {recs.shape[0]}, numpy {want.shape[0]}")
         check(np.array_equal(recs, want), f"zone {z}: selected records differ from numpy's")
-        count_st, select_st = pipe.csd.history[-2:]
+        count_st, select_st = pipe_stats[-2:]
         check(count_st.tier == select_st.tier == "jit", f"zone {z}: ran on {select_st.tier}")
         account(z, want.shape[0])
         kept.append(want.shape[0])

@@ -21,6 +21,7 @@ verified and JITed; (6) only the (reduced) result returns to the app.
 from __future__ import annotations
 
 import concurrent.futures
+import itertools
 import threading
 import time
 import weakref
@@ -51,6 +52,10 @@ __all__ = ["NvmCsd", "OffloadStats", "CsdTier", "extent_geometry",
            "CopyCounter", "h2d"]
 
 TIERS = ("interp", "jit", "kernel")
+
+# ``cmd`` ids of traced commands, unique across every NvmCsd and thread of
+# the process (``next`` on a count is atomic under the interpreter lock)
+_cmd_ids = itertools.count(1)
 
 
 def resolve_tier(tier: str, program: Program) -> str:
@@ -208,6 +213,11 @@ def execute_extent(
     ``h2d_seconds``. ``result.compile_seconds`` is non-zero only when this
     call prepared a fresh executable (miss in ``cache``).
     """
+    # traced, each step of the jit and kernel tiers is a span that ends as
+    # the next begins
+    traced = _trace._enabled
+    if traced:
+        t = time.monotonic()
     tier = resolve_tier(tier, program)   # kernel -> jit for non-kernelizable
     dtype = np.dtype(program.input_dtype)
     page_elems, n_pages = extent_geometry(
@@ -252,17 +262,26 @@ def execute_extent(
     # the key names the device: CPU and CUDA executables never collide
     jp, compile_seconds, hit = cache.get_or_build(
         (tier, program, n_pages, page_elems, str(torch_device)), build)
+    if traced:
+        t = _trace.complete("csd.prepare", t)
     # steps 2,3: the zone extent, a typed view of the backing buffer
     t_r = time.perf_counter()
-    with _trace.span("tier.read", tier=tier, zone=zone_id,
-                     nblocks=n_blocks):
-        pages = device.read_extent(zone_id, block_off, n_blocks,
-                                   dtype).reshape(n_pages, page_elems)
+    pages = device.read_extent(zone_id, block_off, n_blocks,
+                               dtype).reshape(n_pages, page_elems)
     read_seconds = time.perf_counter() - t_r
+    if traced:
+        t = _trace.complete("tier.read", t, tier=tier, zone=zone_id,
+                            nblocks=n_blocks)
     t0 = time.perf_counter()
-    with _trace.span("tier.compute", tier=tier, pages=n_pages):
-        pages_t, h2d_seconds = stage_extent(device, pages, torch_device)
-        value = jp(pages_t)
+    pages_t, h2d_seconds = stage_extent(device, pages, torch_device)
+    if traced:
+        t = _trace.complete("tier.stage", t)
+    out = jp.launch(pages_t)
+    if traced:
+        t = _trace.complete("tier.launch", t)
+    value = jp.to_host(out)
+    if traced:
+        _trace.complete("tier.result", t)
     exec_seconds = time.perf_counter() - t0
     nbytes = (sum(v.nbytes for v in value) if isinstance(value, tuple)
               else value.nbytes)
@@ -355,7 +374,6 @@ class NvmCsd:
         self._result: Optional[OffloadResult] = None
         self.cache = cache if cache is not None else CompiledProgramCache()
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=max_workers)
-        self.history: list[OffloadStats] = []
 
     # ------------------------------------------------------- part-ii hooks
     def bpf_get_lba_size(self) -> int:
@@ -387,16 +405,33 @@ class NvmCsd:
     ) -> OffloadStats:
         """Verify + execute ``program`` against a zone extent. Synchronous:
         returns once the (reduced) result is available via
-        :meth:`nvm_cmd_bpf_result`."""
+        :meth:`nvm_cmd_bpf_result`.
+
+        Traced, the command is one ``csd.command`` span tagged with a
+        process-wide ``cmd`` id, which every span inside it inherits."""
+        if not _trace._enabled:
+            return self._run(program, zone_id, block_off, n_blocks, tier, None)
+        with _trace.span("csd.command", cmd=next(_cmd_ids), zone=zone_id) as root:
+            return self._run(program, zone_id, block_off, n_blocks, tier, root)
+
+    def _run(self, program: Program, zone_id: int, block_off: int,
+             n_blocks: Optional[int], tier: Optional[str], root) -> OffloadStats:
+        """:meth:`nvm_cmd_bpf_run`'s body inside ``root``, its open span
+        (``None`` untraced); each step is a span that ends as the next
+        begins."""
+        if root is not None:
+            t = time.monotonic()
         tier = resolve_tier(tier or self.default_tier, program)
         zone = self.device.zone(zone_id)
         if n_blocks is None:
             n_blocks = zone.write_pointer - block_off
-
         dtype = np.dtype(program.input_dtype)
         block_bytes = self.device.block_bytes
         page_elems, n_pages = extent_geometry(
             block_bytes, dtype, n_blocks, self.pages_per_read)
+        if root is not None:
+            root.tag(tier=tier, nblocks=n_blocks)
+            t = _trace.complete("csd.prepare", t)
 
         # steps 4: verify (static program + the zone extent it may touch)
         t0 = time.perf_counter()
@@ -408,6 +443,8 @@ class NvmCsd:
             n_blocks=n_blocks,
         )
         verify_seconds = time.perf_counter() - t0
+        if root is not None:
+            _trace.complete("csd.verify", t)
 
         stats = OffloadStats(
             program=program.name, tier=tier, zone_id=zone_id, pages=n_pages,
@@ -430,7 +467,6 @@ class NvmCsd:
         stats.cache_hits = result.cache_hits
         stats.cache_misses = result.cache_misses
         self.bpf_return_data(result)
-        self.history.append(stats)
         return stats
 
     def nvm_cmd_bpf_result(self) -> object:

@@ -23,6 +23,18 @@ Design constraints from the hot path:
     inherits tenant/device tags it never set; contextvars also follow the
     code into coroutine-style callbacks better than thread-locals would.
 
+Two kinds of event come from the tracer itself while it is on:
+
+  * ``py.gc`` — each pass of Python's cyclic collector, as a complete
+    event tagged ``generation`` and ``collected`` (and the tags of the span
+    it interrupted), through one ``gc.callbacks`` entry registered when
+    tracing turns on and removed when it turns off.
+  * ``trace.clock`` — a zero-duration anchor as tracing turns on and again
+    as it turns off, tagged ``unix_ns``: ``time.time_ns()`` read beside the
+    ``time.monotonic()`` that is its ``ts``. ``torch.profiler`` stamps its
+    events in Unix time, so the two anchors put every span on the
+    profiler's timeline (``base_ns`` of :func:`to_chrome_events`).
+
 Export is Chrome ``trace_event`` JSON (``{"traceEvents": [...]}``) with
 complete ("ph": "X") events: load it in Perfetto / chrome://tracing. Host
 threads render as pid 1 (one row per thread); device virtual tracks as
@@ -30,6 +42,7 @@ pid 2 (one row per ``track=`` name, e.g. ``dev0/zone3``).
 """
 from __future__ import annotations
 
+import gc
 import json
 import threading
 import time
@@ -49,6 +62,7 @@ __all__ = [
     "dropped",
     "export_chrome",
     "to_chrome_events",
+    "complete",
     "RING_CAPACITY",
 ]
 
@@ -69,8 +83,22 @@ _span_ctx: ContextVar[Optional[tuple[str, dict]]] = ContextVar(
 
 
 def set_enabled(on: bool) -> None:
+    """Turn tracing on or off. Each turn records a ``trace.clock`` anchor
+    (the closing one before the flag drops) and adds or removes the
+    collector's callback."""
     global _enabled
-    _enabled = bool(on)
+    on = bool(on)
+    if on == _enabled:
+        return
+    if on:
+        _enabled = True
+        gc.callbacks.append(_on_gc)
+        _clock_anchor()
+    else:
+        _clock_anchor()
+        if _on_gc in gc.callbacks:
+            gc.callbacks.remove(_on_gc)
+        _enabled = False
 
 
 def enabled() -> bool:
@@ -80,13 +108,12 @@ def enabled() -> bool:
 @contextmanager
 def tracing(on: bool = True):
     """Temporarily flip tracing (benchmarks wrap their measured region)."""
-    global _enabled
     prev = _enabled
-    _enabled = bool(on)
+    set_enabled(on)
     try:
         yield
     finally:
-        _enabled = prev
+        set_enabled(prev)
 
 
 class _Ring:
@@ -161,6 +188,11 @@ class _Span:
         self._t0 = time.monotonic()
         return self
 
+    def tag(self, **tags) -> None:
+        """Add tags to the open span; spans opened inside it from now on
+        inherit them."""
+        self.tags.update(tags)
+
     def __exit__(self, *exc):
         dur = time.monotonic() - self._t0
         if self._token is not None:
@@ -198,6 +230,26 @@ def span(name: str, **tags):
     return _Span(name, tags)
 
 
+def complete(name: str, t0: float, **tags) -> float:
+    """Record a span ``name`` from ``t0`` (a ``time.monotonic()`` read) to
+    now, its tags merged over the enclosing span's as :func:`span` does, and
+    return now, the next step's start. For hot paths that read the flag once
+    and test it themselves: ``if traced: t = trace.complete("step", t)``
+    costs nothing untraced, where a ``with`` block costs two calls."""
+    now = time.monotonic()
+    if _enabled:
+        _ring().append(("X", name, t0, now - t0, None, _inherit(tags)))
+    return now
+
+
+def _inherit(tags: dict) -> dict:
+    """``tags`` merged over the enclosing span's, as :func:`span` does."""
+    parent = _span_ctx.get()
+    if parent is None or not parent[1]:
+        return tags
+    return {**parent[1], **tags}
+
+
 def instant(name: str, **tags) -> None:
     """Zero-duration marker at now."""
     if not _enabled:
@@ -215,6 +267,40 @@ def event_complete(name: str, ts: float, dur: float,
     if not _enabled:
         return
     _ring().append(("X", name, ts, dur, track, tags))
+
+
+_ANCHOR_READS = 5
+_gc_t0: Optional[float] = None   # start of the collection in progress
+
+
+def _clock_anchor() -> None:
+    """Record ``trace.clock``: the closest of a few (monotonic, Unix)
+    pairs, its ``ts`` the middle of the two monotonic reads around the
+    Unix one."""
+    best = None
+    for _ in range(_ANCHOR_READS):
+        a = time.monotonic()
+        unix_ns = time.time_ns()
+        b = time.monotonic()
+        if best is None or b - a < best[0]:
+            best = (b - a, (a + b) / 2, unix_ns)
+    _ring().append(("X", "trace.clock", best[1], 0.0, None,
+                    {"unix_ns": best[2]}))
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """``gc.callbacks`` entry: one ``py.gc`` event a collection, on the
+    thread that triggered it (collections do not nest)."""
+    global _gc_t0
+    if phase == "start":
+        _gc_t0 = time.monotonic()
+        return
+    t0, _gc_t0 = _gc_t0, None
+    if t0 is None or not _enabled:
+        return
+    tags = {"generation": info["generation"], "collected": info["collected"]}
+    _ring().append(("X", "py.gc", t0, time.monotonic() - t0, None,
+                    _inherit(tags)))
 
 
 def dropped() -> int:
@@ -257,21 +343,45 @@ _HOST_PID = 1
 _DEVICE_PID = 2
 
 
-def to_chrome_events(events: Optional[list[dict]] = None) -> list[dict]:
+def _profiler_axis(events: list[dict], base_ns: int):
+    """``(ts_us, scale)``: the map of a monotonic ``ts`` onto a profiler
+    trace's axis (µs after ``base_ns``, Kineto's ``baseTimeNanoseconds``),
+    linear through the first and last ``trace.clock`` anchors, and the
+    factor that takes a duration in seconds to µs on it."""
+    anchors = sorted((e["ts"], e["tags"]["unix_ns"]) for e in events
+                     if e["type"] == "span" and e["name"] == "trace.clock")
+    if not anchors:
+        raise ValueError("no trace.clock anchor among the events: they were "
+                         "not recorded by set_enabled")
+    (m0, u0), (m1, u1) = anchors[0], anchors[-1]
+    ns_per_s = (u1 - u0) / (m1 - m0) if m1 > m0 else 1e9
+    lead_ns = u0 - int(base_ns)          # exact in ints; floats only for ts - m0
+    return (lambda ts: (lead_ns + (ts - m0) * ns_per_s) * 1e-3), ns_per_s * 1e-3
+
+
+def to_chrome_events(events: Optional[list[dict]] = None,
+                     base_ns: Optional[int] = None) -> list[dict]:
     """Convert drained events to Chrome ``trace_event`` dicts (ts/dur in µs,
-    rebased so the trace starts near 0)."""
+    rebased so the trace starts near 0). Given ``base_ns``, the
+    ``baseTimeNanoseconds`` of a ``torch.profiler`` Chrome trace, each
+    ``ts`` lands on that trace's axis instead (µs after ``base_ns``, through
+    the ``trace.clock`` anchors), so both load aligned in Perfetto."""
     if events is None:
         events = drain()
     if not events:
         return []
-    t0 = min(e["ts"] for e in events)
+    if base_ns is None:
+        t0 = min(e["ts"] for e in events)
+        to_us, scale = (lambda ts: (ts - t0) * 1e6), 1e6
+    else:
+        to_us, scale = _profiler_axis(events, base_ns)
     out: list[dict] = []
     # Metadata: name host threads; give each device track its own tid row.
     threads_seen: dict[int, str] = {}
     tracks: dict[str, int] = {}
     body: list[dict] = []
     for e in events:
-        ts_us = (e["ts"] - t0) * 1e6
+        ts_us = to_us(e["ts"])
         args = dict(e["tags"]) if e["tags"] else {}
         if e["type"] == "span" or e.get("track"):
             track = e.get("track")
@@ -284,7 +394,7 @@ def to_chrome_events(events: Optional[list[dict]] = None) -> list[dict]:
                 threads_seen.setdefault(tid, e["thread"])
             body.append({"name": e["name"], "ph": "X", "pid": pid,
                          "tid": tid, "ts": ts_us,
-                         "dur": e.get("dur", 0.0) * 1e6, "args": args})
+                         "dur": e.get("dur", 0.0) * scale, "args": args})
         else:
             tid = e["tid"]
             threads_seen.setdefault(tid, e["thread"])
@@ -304,10 +414,12 @@ def to_chrome_events(events: Optional[list[dict]] = None) -> list[dict]:
     return out
 
 
-def export_chrome(path: str, events: Optional[list[dict]] = None) -> int:
+def export_chrome(path: str, events: Optional[list[dict]] = None,
+                  base_ns: Optional[int] = None) -> int:
     """Write ``{"traceEvents": [...]}`` JSON loadable in Perfetto /
-    chrome://tracing. Returns the number of trace events written."""
-    evs = to_chrome_events(events)
+    chrome://tracing (``base_ns`` as for :func:`to_chrome_events`). Returns
+    the number of trace events written."""
+    evs = to_chrome_events(events, base_ns)
     with open(path, "w") as f:
         json.dump({"traceEvents": evs,
                    "displayTimeUnit": "ms",
