@@ -24,6 +24,12 @@ Phases, one JSON line each; any failed phase exits non-zero:
             must fail that check: a stale ticket (no block folds) and a
             ticket one short of the block count (the first block to arrive
             folds before the other partials are in: a finite wrong sum).
+            NvmCsd's kernel tier over mapped zone memory as the extents
+            cell runs it: zones of int32, uint32 and float32, every extent
+            of 1-26 blocks at block 0, the zone's end and 2 seeded starts,
+            each read in place (counted in csd.in_place, none copied) with
+            its result in a mapped slot, one launch a command, against the
+            plain version over the same pages (as above)
             paged_attn: the reference tests' geometries, every attention
             geometry of src/repro/configs, one geometry of several splits
             and the granite-8b pool, in float32 and bfloat16 (within
@@ -169,6 +175,8 @@ VECTOR_OPS_PER_S = 67e12       # H100 SXM non-tensor float32 rate, used for ALU 
 PAGE_BYTES = 4096
 DEVICE = "cuda"
 CHECK_PAGES = (64, 65536)       # kernel checks: a small zone and a 256 MiB one
+IN_PLACE_ZONE_BLOCKS = 2048     # the in-place checks' 8 MiB zones
+IN_PLACE_BLOCKS = range(1, 27)  # YCSB E's scans of 1-100 1 KB records (the extents cell)
 BATCH_SHAPES = ((8, 2048), (512, 64))   # chunks x pages: 8 chunks, the array's dispatch
 ZONE_BYTES = 256 * 1024 * 1024  # the Figure 2 zone
 INTERP_ZONE_BYTES = 4 * 1024 * 1024
@@ -572,7 +580,8 @@ def phase_build(kernel_modules, _build):
     return sources
 
 
-def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref):
+def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref, NvmCsd,
+                  ZonedDevice, csd_mod):
     """Each kernel against its plain version; returns max_abs_err per kernel."""
     errs = {"filtered_reduce": 0.0, "filtered_reduce_batched": 0.0}
     failures, n_checks = [], 0
@@ -636,18 +645,81 @@ def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref):
             failures.append(f"batched {name}@{shape} vs plain: {rows} vs {want}")
     identity = zone_filter_identity(torch, tp, zf_kernel, zf_ops, failures)
     n_checks += identity["checks"]
+    in_place = in_place_checks(torch, tp, zf_kernel, zf_ops, zf_ref, NvmCsd, ZonedDevice,
+                               csd_mod, failures)
+    n_checks += in_place["commands"]
+    errs["filtered_reduce"] = max(errs["filtered_reduce"], in_place["max_abs_err"])
     paged_errs, paged_shares, paged_checks = paged_attention_checks(
         torch, pa_kernel, pa_ref, failures)
     errs["paged_attention"] = max(paged_errs.values())
     n_checks += paged_checks
     torch.cuda.synchronize()
     emit("kernels", checks=n_checks, zone_filter_bit_identity=identity,
+         zone_filter_in_place=in_place,
          paged_attention_checks=paged_checks,
          paged_attention_max_abs_err=paged_errs,
          paged_attention_share_of_limit=paged_shares, failures=failures[:10],
          n_failures=len(failures), max_abs_err=errs)
     check(not failures, f"{len(failures)} kernel checks disagree with the plain version")
     return errs
+
+
+def in_place_checks(torch, tp, zf_kernel, zf_ops, zf_ref, NvmCsd, ZonedDevice, csd_mod,
+                    failures):
+    """NvmCsd's kernel tier over small extents of mapped zone memory: each
+    read in place and its result written to a mapped slot
+    (core/csd.py::reads_in_place, kernel.py::filtered_reduce_to_slot),
+    held against ref.py's plain version over the same pages on the card.
+    Failures go to ``failures``; returns the counts and the largest error."""
+    rng = np.random.default_rng(27)
+    n_elems = IN_PLACE_ZONE_BLOCKS * PAGE_BYTES // 4
+    zones = (rng.integers(0, RAND_MAX, n_elems, dtype=np.int32),
+             rng.integers(0, 2**32, n_elems, dtype=np.uint32),
+             (rng.standard_normal(n_elems) * 100).astype(np.float32))
+    progs = (tp.filter_count("int32", "gt", RAND_MAX // 2),
+             tp.Program("uint32", (tp.Instruction(tp.OpCode.CMP_LT, 3_000_000_000),
+                                   tp.Instruction(tp.OpCode.RED_MAX)), name="u32_lt_max"),
+             tp.filter_sum("float32", "gt", 0.0))
+    dev = ZonedDevice(num_zones=len(zones), zone_bytes=IN_PLACE_ZONE_BLOCKS * PAGE_BYTES,
+                      block_bytes=PAGE_BYTES)
+    for z, vals in enumerate(zones):
+        dev.zone_append(z, vals)
+    csd = NvmCsd(dev, device=DEVICE, default_tier="kernel")
+    extents = []
+    for n in IN_PLACE_BLOCKS:
+        last = IN_PLACE_ZONE_BLOCKS - n
+        extents += [(0, n), (last, n), *((int(o), n) for o in rng.integers(0, last + 1, 2))]
+    zf_kernel.filtered_reduce.launches = 0
+    before = csd_mod.in_place.snapshot()[0], csd_mod.h2d.snapshot()[0]
+    n_cmds, max_err = 0, 0.0
+    for z, (vals, prog) in enumerate(zip(zones, progs)):
+        ops, imms = zf_ops.encode_program(prog, DEVICE)
+        kind = zf_ops.TERM_KIND[prog.terminal.op]
+        transform = zf_ref.decode_transform(ops, imms, u32=vals.dtype == np.uint32)
+        for off, n in extents:
+            value, stats = csd.run_and_fetch(prog, z, block_off=off, n_blocks=n)
+            n_cmds += 1
+            x = torch.from_numpy(dev.read_extent(z, off, n, vals.dtype.name)
+                                 .reshape(n, -1).copy()).to(DEVICE)
+            want = zf_ref.filtered_reduce_ref(x, kind, transform)
+            got = torch.from_numpy(np.array(value)).to(DEVICE)
+            mag = None
+            if kind == "sum":
+                t, mask = transform(x.reshape(1, -1))
+                mag = torch.where(mask, t, 0).to(torch.float32).to(torch.float64).abs().sum()
+            ok, err = compare(torch, got, want, kind == "sum", mag)
+            max_err = max(max_err, err)
+            if not ok or stats.tier != "kernel":
+                failures.append(f"in place {prog.name} zone {z} blocks {off}+{n} on "
+                                f"{stats.tier}: {value} vs {want}")
+    moved = csd_mod.in_place.snapshot()[0] - before[0], csd_mod.h2d.snapshot()[0] - before[1]
+    launches = zf_kernel.filtered_reduce.launches
+    if moved != (n_cmds, 0) or launches != n_cmds:
+        failures.append(f"in place: {moved[0]} read in place, {moved[1]} copied, "
+                        f"{launches} launches for {n_cmds} commands")
+    csd_mod.unpin_zone_memory(dev)
+    return dict(commands=n_cmds, in_place=moved[0], copied=moved[1], launches=launches,
+                blocks=[IN_PLACE_BLOCKS[0], IN_PLACE_BLOCKS[-1]], max_abs_err=max_err)
 
 
 def same_bits(torch, a, b):
@@ -3240,7 +3312,8 @@ def main():
         times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, zone, pa_kernel, pa_ref,
                              build)       # the Figure 2 zone, as phase_offload draws it
         del zone
-        errs = phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref)
+        errs = phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref, NvmCsd,
+                             ZonedDevice, csd_mod)
         data, launches, csd_count = phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod,
                                                   zf_kernel)
         on_array = phase_array(torch, tp, ZonedDevice, array_mod, csd_mod, trace, zf_kernel,

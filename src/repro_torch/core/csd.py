@@ -31,7 +31,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch._device import host_tensor, host_to_device, resolve_device
+from repro_torch._device import (host_tensor, host_to_device, register_mapped,
+                                resolve_device)
 
 from repro_torch.core.cache import CompiledProgramCache
 from repro_torch.core.prefetch import RingReader
@@ -39,6 +40,7 @@ from repro_torch.telemetry import trace as _trace
 from repro_torch.core.programs import Program
 from repro_torch.core.verifier import VerifierLimits, verify_program, verify_zone_access
 from repro_torch.core.vm import (
+    _TORCH_DTYPE,
     OffloadResult,
     interpret_program,
     jit_program,
@@ -49,7 +51,8 @@ from repro_torch.zns.device import ZonedDevice
 __all__ = ["NvmCsd", "OffloadStats", "CsdTier", "extent_geometry",
            "execute_extent", "resolve_tier", "pin_zone_memory",
            "unpin_zone_memory", "pin_array_memory", "stage_extent",
-           "CopyCounter", "h2d"]
+           "CopyCounter", "h2d", "in_place", "reads_in_place",
+           "IN_PLACE_MAX_BYTES"]
 
 TIERS = ("interp", "jit", "kernel")
 
@@ -96,10 +99,60 @@ class CopyCounter:
 
 # every host-to-card copy of zone bytes, wherever the offload path makes it
 h2d = CopyCounter()
+# every extent a kernel read in place from mapped zone memory, with no copy
+in_place = CopyCounter()
+
+# The largest extent a kernel-tier command reads in place; a larger one is
+# copied to the card first. Where the two paths' latencies cross on an H100
+# (tools/stage_sweep.py, PERF.md section 6), rounded down to a power of two,
+# on the machine where they cross soonest: whole 64 MiB commands read
+# across the link at 25-43 GB/s in place from one machine to the next, and
+# at 42-46 GB/s copied, so the crossover lay between 1 and 2 MiB on one
+# machine and between 4 and 8 MiB on another.
+IN_PLACE_MAX_BYTES = 1 << 20
 
 _pinned: "weakref.WeakKeyDictionary[ZonedDevice, weakref.finalize]" = \
     weakref.WeakKeyDictionary()
+_mapped: "weakref.WeakKeyDictionary[ZonedDevice, _CardAlias]" = \
+    weakref.WeakKeyDictionary()
 _pin_lock = threading.Lock()
+
+
+class _CardAlias:
+    """A zone buffer as the card addresses it: ``alias``, a uint8 tensor
+    over the whole buffer at its mapped address (no copy of it exists).
+    The tensor belongs to one device, ``card`` (an ordinal): the one the
+    runtime reports for the memory, current when it was registered."""
+
+    def __init__(self, buf: np.ndarray, alias: torch.Tensor):
+        self.base = buf.ctypes.data
+        self.nbytes = buf.nbytes
+        self.card = alias.get_device()
+        self._typed = {torch.uint8: alias}      # the alias in each zone type
+
+    def extent(self, pages: np.ndarray) -> torch.Tensor:
+        """``pages``, a view of the buffer, as the same bytes on the card."""
+        off = pages.ctypes.data - self.base
+        if off < 0 or off + pages.nbytes > self.nbytes:
+            raise ValueError("extent outside the mapped zone memory")
+        dtype = _TORCH_DTYPE[pages.dtype]
+        typed = self._typed.get(dtype)
+        if typed is None:
+            typed = self._typed[dtype] = self._typed[torch.uint8].view(dtype)
+        size = pages.itemsize
+        return typed.as_strided(pages.shape, [s // size for s in pages.strides],
+                                off // size)
+
+
+class _CudaArray:
+    """``nbytes`` at ``address`` on the card, in the form ``torch.as_tensor``
+    takes (the CUDA array interface); ``owner`` keeps the memory alive."""
+
+    def __init__(self, address: int, nbytes: int, owner):
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (address, False),
+            "strides": None, "version": 2}
+        self._owner = owner
 
 
 def _unpin(buf: np.ndarray) -> None:
@@ -107,26 +160,36 @@ def _unpin(buf: np.ndarray) -> None:
 
 
 def pin_zone_memory(device: ZonedDevice) -> None:
-    """Page-lock ``device``'s whole backing buffer once (``cudaHostRegister``),
-    so that every extent read from it reaches the card in a single DMA with
-    no staging copy on the host. Unregistered when the device is collected
-    (the finalizer holds the buffer until then), or by
-    :func:`unpin_zone_memory`. Idempotent."""
+    """Page-lock ``device``'s whole backing buffer once and map it into the
+    card's address space (``cudaHostRegisterMapped``), so that a kernel
+    reads a small extent in place and a large one reaches the card in a
+    single DMA with no staging copy on the host. Where the runtime will not
+    map it (file-backed memory, for one), it is page-locked only and every
+    extent is copied. Unregistered when the device is collected (the
+    finalizer holds the buffer until then), or by :func:`unpin_zone_memory`.
+    Idempotent."""
     with _pin_lock:
         if device in _pinned:
             return
         buf = device._buf            # the zones' backing bytes
-        err = torch.cuda.cudart().cudaHostRegister(buf.ctypes.data, buf.nbytes, 0)
-        if int(err) != 0:
-            raise RuntimeError(f"cudaHostRegister of the zone memory "
-                               f"({buf.nbytes} bytes) failed: cudaError {int(err)}")
+        card = register_mapped(buf.ctypes.data, buf.nbytes)
+        if card is None:
+            err = torch.cuda.cudart().cudaHostRegister(buf.ctypes.data, buf.nbytes, 0)
+            if int(err) != 0:
+                raise RuntimeError(f"cudaHostRegister of the zone memory "
+                                   f"({buf.nbytes} bytes) failed: cudaError {int(err)}")
+        else:
+            _mapped[device] = _CardAlias(
+                buf, torch.as_tensor(_CudaArray(card, buf.nbytes, buf)))
         _pinned[device] = weakref.finalize(device, _unpin, buf)
 
 
 def unpin_zone_memory(device: ZonedDevice) -> None:
-    """Unregister ``device``'s buffer now rather than when it is collected.
-    No copy from it may be in flight. Idempotent."""
+    """Drop ``device``'s alias on the card and unregister its buffer now
+    rather than when it is collected. No copy from it, and no kernel
+    reading it, may be in flight. Idempotent."""
     with _pin_lock:
+        _mapped.pop(device, None)
         fin = _pinned.pop(device, None)
     if fin is not None:
         fin()
@@ -140,11 +203,38 @@ def pin_array_memory(array) -> None:
         pin_zone_memory(member)
 
 
-def stage_extent(device, pages: np.ndarray,
-                 torch_device: torch.device) -> tuple[torch.Tensor, float]:
+def reads_in_place(card: Optional[int], tier: str, zoned: bool,
+                   mapped_on: Optional[int], nbytes: int) -> bool:
+    """Whether an extent of ``nbytes`` is read where it lies, in mapped zone
+    memory, rather than copied to the card first: only by the kernel tier
+    (the jit tier's many passes would each cross the link) on a CUDA device
+    (``card``, its ordinal; None off CUDA), from a :class:`ZonedDevice`
+    (``zoned``; the array scheduler's chunk sources are not) whose buffer
+    is mapped with its alias on that same device (``mapped_on``, the
+    alias's ordinal; None where the buffer is not mapped), and only up to
+    :data:`IN_PLACE_MAX_BYTES`, beyond which the copy engine is faster."""
+    return (card is not None and tier == CsdTier.KERNEL and zoned
+            and mapped_on == card and nbytes <= IN_PLACE_MAX_BYTES)
+
+
+def _card(torch_device: torch.device) -> Optional[int]:
+    """The ordinal of the CUDA device a command on ``torch_device`` runs on;
+    None off CUDA."""
+    if torch_device.type != "cuda":
+        return None
+    index = torch_device.index
+    return torch.cuda.current_device() if index is None else index
+
+
+def stage_extent(device, pages: np.ndarray, torch_device: torch.device, *,
+                 read_in_place: bool = False) -> tuple[torch.Tensor, float]:
     """Move a zone extent to ``torch_device``: ``(tensor, seconds)``.
 
-    On CUDA this is one blocking host-to-card copy, counted in :data:`h2d`.
+    On CUDA with ``read_in_place`` (:func:`reads_in_place`), the tensor is the
+    extent's slice of the card's alias of the mapped zone memory: nothing
+    is copied, allocated or waited for, and the read counts in
+    :data:`in_place`. Otherwise it is one blocking host-to-card copy,
+    counted in :data:`h2d`.
     The extent of a :class:`ZonedDevice` is a read-only view of its buffer,
     page-locked here once, so the copy is a single DMA from zone memory.
     Any other source (a chunk the array scheduler re-read or reconstructed
@@ -156,6 +246,11 @@ def stage_extent(device, pages: np.ndarray,
     if torch_device.type != "cuda":
         return host_to_device(pages, torch_device), 0.0
     t0 = time.perf_counter()
+    if read_in_place:
+        out = _mapped[device].extent(pages)
+        seconds = time.perf_counter() - t0
+        in_place.add(pages.nbytes)
+        return out, seconds
     src = host_tensor(pages)
     if isinstance(device, ZonedDevice):
         pin_zone_memory(device)
@@ -204,12 +299,17 @@ def execute_extent(
     by :class:`NvmCsd` and the array scheduler (which calls it per stripe
     chunk when the batched path does not apply).
 
-    The jit and kernel tiers compute on ``torch_device``. The extent reaches
-    it with one copy (:func:`stage_extent`: ``read_extent`` hands out a typed
-    view of the page-locked device buffer, and one DMA moves it to the card;
-    a ``device`` that is not a :class:`ZonedDevice`, such as the array
+    The jit and kernel tiers compute on ``torch_device``. ``read_extent``
+    hands out a typed view of the page-locked device buffer. On the kernel
+    tier a small extent of a mapped :class:`ZonedDevice`
+    (:func:`reads_in_place`) is read by the kernel where it lies; on CUDA
+    the kernel tier's result is written to a mapped result slot, so a
+    command that reads in place waits for the card once. Any other extent
+    reaches the card with one copy
+    (:func:`stage_extent`: one DMA from the page-locked buffer; a
+    ``device`` that is not a :class:`ZonedDevice`, such as the array
     scheduler's in-memory chunk source, goes through a page-locked bounce
-    buffer); that copy is timed inside ``exec_seconds`` and reported as
+    buffer). Either step is timed inside ``exec_seconds`` and reported as
     ``h2d_seconds``. ``result.compile_seconds`` is non-zero only when this
     call prepared a fresh executable (miss in ``cache``).
     """
@@ -272,10 +372,16 @@ def execute_extent(
     if traced:
         t = _trace.complete("tier.read", t, tier=tier, zone=zone_id,
                             nblocks=n_blocks)
+    zoned = isinstance(device, ZonedDevice)
+    alias = _mapped.get(device) if zoned else None
+    mapped = reads_in_place(_card(torch_device), tier, zoned,
+                            None if alias is None else alias.card, pages.nbytes)
     t0 = time.perf_counter()
-    pages_t, h2d_seconds = stage_extent(device, pages, torch_device)
+    pages_t, h2d_seconds = stage_extent(device, pages, torch_device,
+                                        read_in_place=mapped)
     if traced:
-        t = _trace.complete("tier.stage", t)
+        t = _trace.complete("tier.stage", t,
+                            path="in_place" if mapped else "copy")
     out = jp.launch(pages_t)
     if traced:
         t = _trace.complete("tier.launch", t)
@@ -340,8 +446,10 @@ class NvmCsd:
     ``zoned`` is the ZNS device that holds the data; ``device`` is where the
     jit and kernel tiers compute (default ``"cuda"``; it raises when CUDA is
     absent, so pass ``device="cpu"`` to run the plain PyTorch paths). On
-    CUDA the zone memory is page-locked here, once, so each offload moves
-    its extent to the card in a single DMA.
+    CUDA the zone memory is page-locked and mapped here, once
+    (:func:`pin_zone_memory`), so the kernel tier reads a small extent in
+    place and any other offload moves its extent to the card in a single
+    DMA.
 
     ``pages_per_read`` controls the device-internal streaming granularity
     (paper default: one 4 KiB block per access). ``cache`` holds prepared
@@ -365,7 +473,8 @@ class NvmCsd:
     ):
         self.torch_device = resolve_device(device)
         if self.torch_device.type == "cuda" and isinstance(zoned, ZonedDevice):
-            pin_zone_memory(zoned)
+            with torch.cuda.device(self.torch_device):  # the alias's device
+                pin_zone_memory(zoned)
         self.device = zoned
         self.default_tier = default_tier
         self.pages_per_read = int(pages_per_read)

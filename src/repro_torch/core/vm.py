@@ -31,7 +31,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch._device import host_to_device, resolve_device, to_numpy
+from repro_torch._device import ResultSlot, host_to_device, resolve_device, to_numpy
 from repro_torch.core.programs import (
     CMP_OPS,
     Instruction,
@@ -375,9 +375,11 @@ class JittedProgram:
     those tensors without waiting for the device (the array scheduler's
     dispatch); :meth:`to_host` brings them to the host as numpy; calling the
     JittedProgram does both, taking host numpy pages (or a tensor already
-    on ``device``), as the reference's callers expect."""
+    on ``device``), as the reference's callers expect. On CUDA the
+    single kernel tier's launch returns, in place of a tensor, the mapped
+    host :class:`~repro_torch._device.ResultSlot` the card writes into."""
 
-    fn: Callable                     # (pages tensor) -> tensor | (buf, n)
+    fn: Callable                     # (pages tensor) -> tensor | (buf, n) | ResultSlot
     compile_seconds: float           # the paper's "JIT time" statistic
     n_pages: int
     page_elems: int
@@ -387,7 +389,8 @@ class JittedProgram:
 
     def launch(self, pages: torch.Tensor):
         """Enqueue the program over ``pages`` (a tensor on ``device``) on
-        the current stream; returns the result tensor(s) on ``device``."""
+        the current stream; returns the result tensor(s) on ``device``, or
+        the result slot the card writes it into."""
         if pages.device.type != self.device.type:
             raise ValueError(f"pages on {pages.device}, program prepared "
                              f"for {self.device}")
@@ -396,7 +399,10 @@ class JittedProgram:
     def to_host(self, out) -> object:
         """The result tensor(s) of :meth:`launch` as numpy, in the types the
         reference returns (min/max in the stream type, SELECT as
-        ``(buf, n)``). Waits for the current stream."""
+        ``(buf, n)``). Waits for the current stream, or for a result slot's
+        own launch alone."""
+        if isinstance(out, ResultSlot):
+            return out.wait()
         dtype = np.dtype(self.program.input_dtype)
         if isinstance(out, tuple):                  # SELECT / SELECT_REC
             buf, n = out

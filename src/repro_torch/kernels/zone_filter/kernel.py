@@ -12,11 +12,14 @@ A tensor on the CPU goes to the plain PyTorch version in ``ref.py``; a CUDA
 tensor launches the kernel or raises. Each wrapper counts its launches in
 its ``launches`` attribute.
 
-A call on the card is one kernel launch and one allocation, its result.
-What depends only on the type, kind and shape is checked once (``_plan``);
-the kernel's partials and per-chunk tickets live in a workspace kept for
-each (device, stream) (:class:`Workspaces`), so that two streams never share
-one while their launches may overlap.
+A call on the card is one kernel launch and one allocation, its result;
+:func:`filtered_reduce_to_slot` allocates nothing: the kernel writes its
+result into a page-locked host slot mapped into the card's address space
+(the same source, only the result's address differs). What depends only on
+the type, kind and shape is checked once (``_plan``); the kernel's partials
+and per-chunk tickets live in a workspace kept for each (device, stream)
+(:class:`Workspaces`), so that two streams never share one while their
+launches may overlap.
 """
 from __future__ import annotations
 
@@ -27,8 +30,10 @@ import threading
 from pathlib import Path
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from repro_torch._device import ResultSlot, ResultSlots, register_mapped
 from repro_torch.kernels import _build
 from repro_torch.kernels.zone_filter.ref import (
     KINDS,
@@ -37,8 +42,8 @@ from repro_torch.kernels.zone_filter.ref import (
     filtered_reduce_batched_ref,
 )
 
-__all__ = ["filtered_reduce", "filtered_reduce_batched", "blocks_per_chunk",
-           "load", "SOURCE", "Workspaces"]
+__all__ = ["filtered_reduce", "filtered_reduce_batched", "filtered_reduce_to_slot",
+           "blocks_per_chunk", "load", "SOURCE", "Workspaces", "result_slots"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "zone_filter.cu"
 
@@ -115,6 +120,7 @@ class _Plan(NamedTuple):
     dtype_code: int
     kind_code: int
     out_like: torch.Tensor      # the result's shape, type and device
+    out_np: np.dtype            # the result's type, as the host reads it
     n_chunks: int
     chunk_elems: int
     bpc: int
@@ -135,16 +141,17 @@ def _plan(dtype: torch.dtype, kind: str, shape: torch.Size, batched: bool,
     if not 1 <= n_chunks <= 65535 or chunk_elems == 0:
         raise ValueError(f"need 1..65535 non-empty chunks, got shape {tuple(shape)}")
     out_like = torch.empty((n_chunks,) if batched else (), dtype=out_dtype, device=device)
-    return _Plan(_DTYPE_CODE[dtype], KINDS.index(kind), out_like, n_chunks, chunk_elems,
+    return _Plan(_DTYPE_CODE[dtype], KINDS.index(kind), out_like,
+                 np.dtype(str(out_dtype).removeprefix("torch.")), n_chunks, chunk_elems,
                  blocks_per_chunk(chunk_elems, dtype.itemsize))
 
 
-def _launch(pages: torch.Tensor, kind: str, ops: Optional[torch.Tensor],
-            imms: Optional[torch.Tensor], batched: bool) -> torch.Tensor:
-    """One launch over ``pages`` on the current stream: ``[n_chunks]`` when
-    ``batched``, else 0-d."""
+def _launch(pages: torch.Tensor, plan: _Plan, ops: Optional[torch.Tensor],
+            imms: Optional[torch.Tensor], out: int) -> None:
+    """One launch over ``pages`` on the current stream, its ``[n_chunks]``
+    (batched) or 0-d result written at ``out``, a card address: a tensor
+    like ``plan.out_like`` or a mapped result slot."""
     idx = pages.get_device()
-    plan = _plan(pages.dtype, kind, pages.shape, batched, idx)
     if not pages.is_contiguous():
         raise ValueError("pages must be contiguous")
     x = pages.data_ptr()
@@ -164,14 +171,39 @@ def _launch(pages: torch.Tensor, kind: str, ops: Optional[torch.Tensor],
         ops_ptr, imms_ptr = ops.data_ptr(), imms.data_ptr()
     stream = torch._C._cuda_getCurrentRawStream(idx)
     partials, tickets = _WORKSPACES.reserve(idx, stream, plan.n_chunks, plan.bpc)
-    out = torch.empty_like(plan.out_like)
     err = load().zf_filtered_reduce(
         plan.dtype_code, plan.kind_code, x, plan.n_chunks, plan.chunk_elems,
         ops_ptr, imms_ptr, n_insns, partials.data_ptr(), tickets.data_ptr(),
-        plan.bpc, out.data_ptr(), stream)
+        plan.bpc, out, stream)
     if err:
         raise RuntimeError(f"zone_filter kernel launch failed: cudaError {err}")
+
+
+def _to_tensor(pages: torch.Tensor, kind: str, ops, imms, batched: bool) -> torch.Tensor:
+    """One launch over ``pages`` into a new tensor on the card."""
+    plan = _plan(pages.dtype, kind, pages.shape, batched, pages.get_device())
+    out = torch.empty_like(plan.out_like)
+    _launch(pages, plan, ops, imms, out.data_ptr())
     return out
+
+
+def _map_slots(host: np.ndarray) -> int:
+    address = register_mapped(host.ctypes.data, host.nbytes)
+    if address is None:
+        raise RuntimeError("cudaHostRegister could not map the result slots")
+    return address
+
+
+_SLOTS: dict[int, ResultSlots] = {}
+
+
+def result_slots(device: int) -> ResultSlots:
+    """The result slots of CUDA device ``device`` (an ordinal); each slot's
+    event belongs to it."""
+    slots = _SLOTS.get(device)
+    if slots is None:
+        slots = _SLOTS.setdefault(device, ResultSlots(_map_slots, torch.cuda.Event))
+    return slots
 
 
 def _plain(pages: torch.Tensor, kind: str, ops, imms) -> torch.Tensor:
@@ -191,7 +223,7 @@ def filtered_reduce_batched(pages: torch.Tensor, *, kind: str = "count",
         return _plain(pages, kind, ops, imms)
     if not pages.is_cuda:
         raise ValueError(f"unsupported device {pages.device}")
-    out = _launch(pages, kind, ops, imms, True)
+    out = _to_tensor(pages, kind, ops, imms, True)
     filtered_reduce_batched.launches += 1
     return out
 
@@ -206,9 +238,33 @@ def filtered_reduce(pages: torch.Tensor, *, kind: str = "count",
         return _plain(pages.unsqueeze(0), kind, ops, imms)[0]
     if not pages.is_cuda:
         raise ValueError(f"unsupported device {pages.device}")
-    out = _launch(pages, kind, ops, imms, False)
+    out = _to_tensor(pages, kind, ops, imms, False)
     filtered_reduce.launches += 1
     return out
+
+
+def filtered_reduce_to_slot(pages: torch.Tensor, *, kind: str = "count",
+                            ops: Optional[torch.Tensor] = None,
+                            imms: Optional[torch.Tensor] = None) -> ResultSlot:
+    """:func:`filtered_reduce` on the card, its result written into a
+    result slot (:func:`result_slots`) with an event recorded after the
+    launch, rather than into a new tensor: ``slot.wait()`` is the value as
+    numpy, the same bits. Counted in ``filtered_reduce.launches``."""
+    if not pages.is_cuda:
+        raise ValueError(f"result slots are for a CUDA tensor, not one on {pages.device}")
+    idx = pages.get_device()
+    plan = _plan(pages.dtype, kind, pages.shape, False, idx)
+    slots = result_slots(idx)
+    slot = slots.take()
+    try:
+        _launch(pages, plan, ops, imms, slot.address)
+        slot.event.record(torch.cuda.current_stream(idx))
+    except BaseException:
+        slots.give(slot)
+        raise
+    slot.dtype = plan.out_np
+    filtered_reduce.launches += 1
+    return slot
 
 
 filtered_reduce.launches = 0

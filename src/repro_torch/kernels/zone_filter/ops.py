@@ -14,6 +14,7 @@ from repro_torch.core.vm import JittedProgram
 from repro_torch.kernels.zone_filter.kernel import (
     filtered_reduce,
     filtered_reduce_batched,
+    filtered_reduce_to_slot,
 )
 from repro_torch.kernels.zone_filter.ref import INSN_CODES
 
@@ -110,11 +111,14 @@ def _kernel_program(program: Program, n_pages: int, page_elems: int,
     kind = TERM_KIND[program.terminal.op]
     ops, imms = encode_program(program, device)
 
-    def fn(pages: torch.Tensor) -> torch.Tensor:
+    batched = reduce is filtered_reduce_batched
+    if not batched and device.type == "cuda":
+        reduce = filtered_reduce_to_slot    # a 0-d result: a mapped host slot
+
+    def fn(pages: torch.Tensor):
         return reduce(pages, kind=kind, ops=ops, imms=imms)
     return JittedProgram(fn, time.perf_counter() - t0, n_pages, page_elems,
-                         program, device,
-                         batched=reduce is filtered_reduce_batched)
+                         program, device, batched=batched)
 
 
 def kernel_program(program: Program, n_pages: int, page_elems: int, *,
@@ -122,7 +126,9 @@ def kernel_program(program: Program, n_pages: int, page_elems: int, *,
     """A verified Program on the kernel tier for a fixed
     ``[n_pages, page_elems]`` geometry, as a
     :class:`~repro_torch.core.vm.JittedProgram` (so the kernel tier reports
-    compile time and caches exactly like the jit tier)."""
+    compile time and caches exactly like the jit tier). On CUDA its launch
+    writes the result into a mapped host slot
+    (:func:`~repro_torch.kernels.zone_filter.kernel.filtered_reduce_to_slot`)."""
     return _kernel_program(program, n_pages, page_elems, device,
                            filtered_reduce)
 
