@@ -1,34 +1,34 @@
 """One run of one cell: set-up, the measured window, the check, the metrics.
 
-Shared by every cell; nothing here knows a cell by name.
+Shared by every cell; nothing here knows a cell, a kind or a reference by
+name: the configuration's kind file and reference supply them (``spec.py``).
 
-1. Set-up: the zone values are made on the compute device from the seed
-   (``torch.randint`` on a seeded generator there, one call a zone) and
-   copied to the host; the port is built from the configuration and writes
-   them; one command of every extent length the mix uses warms its shapes.
-2. The window: one client in a closed loop for ``seconds``. A command
-   started before the close runs to its end; the metrics count the commands
-   completed inside the window, the check counts them all. The set-up's
-   objects are frozen out of the cyclic collector first (``gc.freeze``):
-   on the card's machine a full collection over them took 70-150 ms and
-   landed on a cell's tail.
-3. After the window (peak memory read, the port closed and unpinned): the
-   configuration's plain reference answers every command from the values as
-   generated, and each answer must equal it.
+1. Set-up: the kind makes the data from the seed and builds the port from
+   the configuration with it; the kind's warm-up commands warm every shape
+   the mix uses.
+2. The window: one client in a closed loop for ``seconds``, over the kind's
+   command stream. A command started before the close runs to its end; the
+   metrics count the commands completed inside the window, the check counts
+   them all. The set-up's objects are frozen out of the cyclic collector
+   first (``gc.freeze``): on the card's machine a full collection over them
+   took 70-150 ms and landed on a cell's tail.
+3. After the window (peak memory read, the port closed): the commands come
+   again from the seed (the records hold numbers alone, so the window's
+   objects stay few), and the configuration's plain reference answers every
+   answered command, warm-up included, from the data as generated, and
+   judges each answer.
 """
 from __future__ import annotations
 
 import gc
+import itertools
 import time
 from dataclasses import dataclass, field
 from typing import Optional
 
-import numpy as np
-
-from zcsd_bench import spec, stats, traffic
-from zcsd_bench.deploy import Deployment, port_path
+from zcsd_bench import spec, stats
+from zcsd_bench.deploy import port_path
 from zcsd_bench.tracing import SliceCommand, SliceTracer, breakdown
-from zcsd_bench.traffic import Command
 
 TRACE_DIR = spec.REPO / "build" / "zcsd_bench"
 
@@ -39,34 +39,16 @@ class Run:
 
     result: dict
     records: list
-    zone_values: list
-    info: dict = field(default_factory=dict)   # setup_s, checked, coverage
+    commands: list                             # the window's, as its records
+    data: object                               # the kind's, with keep_data
+    info: dict = field(default_factory=dict)   # setup_s, warmed, checked, coverage
 
 
-def make_values(config: dict, seed: int, device) -> list[np.ndarray]:
-    """The values of every zone, from ``seed``: uniform integers in
-    ``[low, high)`` of the program's type, made on ``device``."""
-    import torch
-    v = config["values"]
-    dtype = np.dtype(config["program"]["dtype"])
-    n = int(config["zone_data_bytes"]) // dtype.itemsize
-    gen = torch.Generator(device=device)
-    gen.manual_seed(traffic.seed_value(seed))
-    tdtype = getattr(torch, dtype.name)
-    out = []
-    for _ in range(int(config["num_zones"])):
-        t = torch.randint(int(v["low"]), int(v["high"]), (n,), generator=gen,
-                          device=device, dtype=tdtype)
-        out.append(t.cpu().numpy())
-        del t
-    return out
-
-
-def _window(dep: Deployment, gen, seconds: float,
+def _window(dep, gen, seconds: float,
             tracer: Optional[SliceTracer]) -> tuple[list, float, int]:
     """The closed loop: the records, the window's start, and the programs
     the port had to prepare inside the window (its compile cache's misses:
-    0 once the set-up has warmed every extent length)."""
+    0 once the set-up has warmed every shape)."""
     records, builds = [], 0
     t_start = time.perf_counter()
     t_end = t_start + seconds
@@ -78,8 +60,7 @@ def _window(dep: Deployment, gen, seconds: float,
             break
         sliced = tracer is not None and tracer.active(now)
         cmd = next(gen)
-        rec = stats.Record(cmd.zone, cmd.block_off, cmd.n_blocks,
-                           cmd.n_blocks * dep.block_bytes, 0.0, 0.0)
+        rec = stats.Record(cmd.nbytes, 0.0, 0.0)
         if sliced:
             index = len(tracer.commands)
             with tracer.marker(index):
@@ -88,7 +69,7 @@ def _window(dep: Deployment, gen, seconds: float,
                 st = _call(dep, cmd, rec)
                 mono1 = time.monotonic()
                 after = dep.launches()
-            tracer.commands.append(SliceCommand(rec, st, after - before,
+            tracer.commands.append(SliceCommand(rec, cmd, st, after - before,
                                                 mono0, mono1, index))
         else:
             st = _call(dep, cmd, rec)
@@ -97,7 +78,7 @@ def _window(dep: Deployment, gen, seconds: float,
     return records, t_start, builds
 
 
-def _call(dep: Deployment, cmd: Command, rec: stats.Record):
+def _call(dep, cmd, rec: stats.Record):
     rec.t0 = time.perf_counter()
     st = None
     try:
@@ -108,13 +89,16 @@ def _call(dep: Deployment, cmd: Command, rec: stats.Record):
     return st
 
 
-def check(records: list, table) -> dict:
-    """Every command's answer against the reference: ``{name: (value,
-    limit)}``, the numbers ``correct`` is decided on."""
-    failed = sum(not r.ok for r in records)
-    wrong = sum(1 for r in records if r.ok and
-                r.value != table.value(r.zone, r.block_off, r.n_blocks))
-    return {"commands_failed": (failed, 0), "answers_wrong": (wrong, 0)}
+def check(ref, data, config: dict, records: list, commands: list) -> tuple[dict, int]:
+    """Every command against the reference: ``({name: (value, limit)},
+    answers wrong)``, the numbers ``correct`` is decided on: the commands
+    that failed, then the reference's own numbers over the answered ones."""
+    if [r.nbytes for r in records] != [c.nbytes for c in commands]:
+        raise RuntimeError("the commands drawn again are not the run's")
+    answered = [(r, c) for r, c in zip(records, commands) if r.ok]
+    expected = ref.answers(data, config, [c for _, c in answered])
+    checks, wrong = ref.check([r for r, _ in answered], expected)
+    return {"commands_failed": (len(records) - len(answered), 0), **checks}, wrong
 
 
 def correct(checks: dict) -> bool:
@@ -124,33 +108,31 @@ def correct(checks: dict) -> bool:
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
              device: str = "cuda", t_setup0: Optional[float] = None,
-             keep_values: bool = False) -> Run:
+             keep_data: bool = False) -> Run:
     """Run ``cell`` once; ``t_setup0`` is when set-up began (the process's
     start, for the command line)."""
     import torch
     t_setup0 = time.perf_counter() if t_setup0 is None else t_setup0
     cfg = cell.config
-    traffic.validate(cell.traffic)
+    kind = spec.kind(cfg)
     cuda = torch.device(device).type == "cuda"
     port_path()
     import repro_torch.telemetry.trace as trace_mod
 
-    values = make_values(cfg, seed, device)
+    data = kind.make_data(cfg, seed, device)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    dep = Deployment(cfg, values, device)
+    dep = kind.Deployment(cfg, data, device)
     tracer = None
     info: dict = {}
     try:
-        gen = traffic.commands(cell.traffic, dep.num_zones, dep.zone_blocks,
-                               dep.block_bytes, seed)
+        gen = kind.commands(cfg, cell.traffic, seed)
         warm = []
-        for n in traffic.extent_lengths(cell.traffic, dep.zone_blocks,
-                                        dep.block_bytes):
-            rec = stats.Record(0, 0, n, n * dep.block_bytes, 0.0, 0.0)
-            _call(dep, Command(0, 0, n), rec)
+        for cmd in kind.warmup(cfg, cell.traffic):
+            rec = stats.Record(cmd.nbytes, 0.0, 0.0)
+            _call(dep, cmd, rec)
             warm.append(rec)
         if trace:
             tracer = SliceTracer(seconds, trace_mod, cuda,
@@ -176,8 +158,11 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         del dep
 
     ref = spec.reference(cfg)
-    table = ref.table(values, cfg["program"], int(cfg["block_bytes"]))
-    checks = check(warm + records, table)
+    # the run's commands, drawn again: the warm-up, then the seed's stream
+    commands = kind.warmup(cfg, cell.traffic) + list(itertools.islice(
+        kind.commands(cfg, cell.traffic, seed), len(records)))
+    checks, wrong = check(ref, data, cfg, warm + records, commands)
+    info["warmed"] = len(warm)
     info["checked"] = len(warm) + len(records)
     info["setup_s"] = setup_s
     if cuda:
@@ -194,7 +179,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         metrics = {m["name"]: {"value": got[m["name"]], "unit": m["unit"]}
                    for m in cell.end_to_end}
     else:
-        td = tracer.data(cfg, ref)
+        td = tracer.data(cfg, ref, kind.ROOT_SPAN)
         metrics = {}
         for m in cell.per_layer:
             v = spec.metric_reader(m["name"])(td)
@@ -209,9 +194,10 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
 
     result = {"correct": correct(checks),
               "attempted": len(records),
-              "failed": checks["commands_failed"][0] + checks["answers_wrong"][0],
+              "failed": checks["commands_failed"][0] + wrong,
               "metrics": metrics, "device": dev}
     if breakdown_ is not None:
         result["breakdown"] = breakdown_
     result["checks"] = {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()}
-    return Run(result, records, values if keep_values else [], info)
+    return Run(result, records, commands[len(warm):], data if keep_data else None,
+               info)

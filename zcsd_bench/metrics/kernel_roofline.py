@@ -1,6 +1,6 @@
 """``kernel_roofline``: the least time the commands' work can take on the
-card (``bound.py``: each extent byte read once and the result written once
-over 3.35 TB/s, or the program's operations on every value over
+card (``bound.py`` over the configuration's reference's ``work``: the bytes
+read and written once over 3.35 TB/s, or the operations over
 67 TFLOP/s, whichever is longer), over the device time of every kernel the
 profiler saw inside those commands, whatever its name, in %. Only commands
 whose launches the profiler saw in full count (``TraceData.seen_in_full``).

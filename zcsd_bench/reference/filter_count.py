@@ -4,7 +4,8 @@ zone extent satisfy ``x <cmp> threshold``.
 It imports NumPy alone. It reads the values the benchmark generated, never
 the program's zones or results, and answers every command from per-block
 counts: a command over blocks ``[off, off + n)`` of a zone is the sum of
-those blocks' counts, read from a running sum.
+those blocks' counts, read from a running sum. Every answer has to equal
+it: ``answers_wrong``, limit 0.
 
 ``control=True`` is the same count computed in float32 (the values and the
 threshold cast first): the step below the configuration's exact int32
@@ -33,6 +34,28 @@ class ExtentTable:
     def value(self, zone: int, block_off: int, n_blocks: int) -> int:
         r = self._running[zone]
         return int(r[block_off + n_blocks] - r[block_off])
+
+
+def answers(zone_values: list[np.ndarray], config: dict, commands: list,
+            control: bool = False) -> list[int]:
+    """The count each command's extent holds."""
+    t = table(zone_values, config["program"], int(config["block_bytes"]), control)
+    return [t.value(c.zone, c.block_off, c.n_blocks) for c in commands]
+
+
+def check(records: list, expected: list[int]) -> tuple[dict, int]:
+    """``({name: (value, limit)}, answers wrong)`` over the answered
+    records."""
+    wrong = sum(1 for r, want in zip(records, expected) if r.value != want)
+    return {"answers_wrong": (wrong, 0)}, wrong
+
+
+def work(config: dict, command) -> tuple[int, int]:
+    """A command's ``(bytes, operations)``: its extent read once and the
+    count written once; one compare and one add a value."""
+    n_bytes = command.n_blocks * int(config["block_bytes"])
+    itemsize = np.dtype(config["program"]["dtype"]).itemsize
+    return n_bytes + RESULT_BYTES, OPS_PER_ELEMENT * n_bytes // itemsize
 
 
 def table(zone_values: list[np.ndarray], program: dict, block_bytes: int,

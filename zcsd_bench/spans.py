@@ -1,22 +1,21 @@
 """The port's spans of each slice command, grouped by the ``cmd`` id of its
-root span ``csd.command`` (``core/csd.py::NvmCsd.nvm_cmd_bpf_run``), for
-the readers of ``launch_us``, ``sync_us``, ``frontend_us`` and ``gc_ms``.
+root span (the kind's ``ROOT_SPAN``, ``TraceData.root``), for the readers of
+``launch_us``, ``sync_us``, ``frontend_us`` and ``gc_ms``.
 
 A program without root spans or collector events (before they existed)
 gives the readers nothing to read: each returns ``None``.
 """
 from __future__ import annotations
 
-ROOT = "csd.command"
 GC = "py.gc"
 CLOCK = "trace.clock"
 
 
 def commands(td) -> list[tuple[dict, list[dict]]]:
     """``(root, spans inside it)`` for each completed command of the slice
-    whose root span the slice holds: the root is the ``csd.command`` that
-    starts inside the command (``td.spans_of``), its spans those that carry
-    its ``cmd`` tag."""
+    whose root span the slice holds: the root is the span named ``td.root``
+    that starts inside the command (``td.spans_of``), its spans those that
+    carry its ``cmd`` tag."""
     by_cmd: dict = {}
     for s in td.spans:
         cmd = (s.get("tags") or {}).get("cmd")
@@ -26,7 +25,7 @@ def commands(td) -> list[tuple[dict, list[dict]]]:
     for pos, c in enumerate(td.commands):
         if not c.rec.ok:
             continue
-        root = next((s for s in td.spans_of(pos) if s["name"] == ROOT), None)
+        root = next((s for s in td.spans_of(pos) if s["name"] == td.root), None)
         if root is not None:
             out.append((root, [s for s in by_cmd[root["tags"]["cmd"]]
                                if s is not root]))

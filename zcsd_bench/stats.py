@@ -5,8 +5,9 @@ Percentiles are taken from the raw latencies of the commands completed in
 the window (linear between ranks), never from histogram buckets. A failed
 command counts with an infinite latency, so it is over any limit; where a
 percentile lands on one it reads as the window's length. ``zone_GBps`` is
-the zone bytes of the commands completed in the window over the window's
-length, so a stall anywhere in the window lowers it.
+the bytes read (each command's ``nbytes``) by the commands completed in the
+window over the window's length, so a stall anywhere in the window lowers
+it.
 """
 from __future__ import annotations
 
@@ -17,11 +18,10 @@ from typing import Optional
 
 @dataclass
 class Record:
-    """One command as the client saw it (``perf_counter`` seconds)."""
+    """One command as the client saw it (``perf_counter`` seconds): numbers
+    alone, so the window's records weigh little on the collector. The
+    commands themselves come again from the seed after the window."""
 
-    zone: int
-    block_off: int
-    n_blocks: int
     nbytes: int
     t0: float
     t1: float

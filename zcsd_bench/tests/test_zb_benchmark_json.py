@@ -49,6 +49,8 @@ def test_configs_are_files_under_paths_and_used():
         assert cfg["source"] == c["source"]
         assert sorted(cfg["reduced"]) == sorted(c["reduced"])
         assert c["name"] in used
+        assert (spec.HERE / "kinds" / f"{cfg['kind']}.py").exists()
+        assert (spec.HERE / "reference" / f"{cfg['reference']}.py").exists()
 
 
 def test_cells():

@@ -1,17 +1,16 @@
 """``correct`` comes out false when the timed path is broken underneath.
 
 Each test skips the command line's look for a card and drives a whole run
-on the CPU (the port's plain paths, at a test's size) with one fault of
-``faults.py`` planted in the port: an answer altered where the kernel
-produces it, and a result slot that keeps an old answer (a step that
-returns its state unchanged). The cells run on one chip, one command at a
-time, so there is no exchange between chips and no batch to leave half of.
-A sound run and the float32 control, judged by the run's own comparison,
-close the set.
+on the CPU (the port's plain paths, at the kind's test cut) with one fault
+of the cell's kind (its ``FAULTS``) planted in the port; each fault must
+also do to the checks what its kind says. For the ``nvm`` kind: an answer
+altered where the kernel produces it, and a result slot that keeps an old
+answer (a step that returns its state unchanged). A sound run and the
+reference's control, judged by the run's own comparison, close the set.
 """
 import pytest
 
-from zcsd_bench import faults, harness, spec, traffic
+from zcsd_bench import harness, spec
 from zcsd_bench.control import readings
 
 SECONDS = 0.4
@@ -22,6 +21,8 @@ def run(cell, **kw):
 
 
 CELLS = [w["name"] for w in spec.load_json(spec.REPO / "BENCHMARK.json")["workloads"]]
+FAULT_CASES = [(name, fault) for name in CELLS
+               for fault in spec.kind(spec.cell(name).config).FAULTS]
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -32,28 +33,19 @@ def test_a_sound_run_is_correct(cell, name):
     assert r.info["window_builds"] == 0
 
 
-@pytest.mark.parametrize("name", CELLS)
-def test_an_answer_altered_where_the_kernel_produces_it(cell, name):
+@pytest.mark.parametrize("name,fault", FAULT_CASES, ids=[f"{n}-{f}" for n, f in FAULT_CASES])
+def test_a_planted_fault_makes_the_run_incorrect(cell, name, fault):
     c = cell(name)
-    with faults.altered_answer():
-        r = run(c).result
-    warmed = traffic.extent_lengths(c.traffic, c.config["zone_bytes"] // 4096, 4096)
-    assert not r["correct"]
-    assert r["checks"]["answers_wrong"]["value"] == r["attempted"] + len(warmed)
-
-
-@pytest.mark.parametrize("name", CELLS)
-def test_a_result_slot_that_keeps_its_old_answer(cell, name):
-    with faults.stale_result():
-        r = run(cell(name)).result
-    assert not r["correct"] and r["checks"]["answers_wrong"]["value"] > 0
+    plant, must = spec.kind(c.config).FAULTS[fault]
+    with plant():
+        r = run(c)
+    assert not r.result["correct"]
+    assert must(r.result, c.config, c.traffic)
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_the_float32_control_fails_where_the_program_passes(cell, name):
-    # values crowded round the threshold, so a test's few commands meet some
-    # that float32 cannot tell from it
-    c = cell(name, values={"low": 2**30 - 4096, "high": 2**30 + 4096})
-    rd = readings(run(c, keep_values=True), c)
-    assert rd["program_correct"] and rd["program_wrong"] == rd["program_failed"] == 0
-    assert not rd["control_correct"] and rd["control_wrong"] > 0
+    c = cell(name)
+    rd = readings(run(c, keep_data=True), c)
+    assert rd["program_correct"] and rd["program_failed"] == 0
+    assert not rd["control_correct"] and rd["control_failed"] > 0

@@ -1,5 +1,7 @@
 """Nothing of the benchmark imports JAX or the JAX package; the references
-import nothing but NumPy."""
+import nothing but NumPy and PyTorch: never the program under test
+(``repro_torch``), JAX or the JAX package, so that what judges the program
+is independent of it."""
 import ast
 import sys
 
@@ -8,6 +10,7 @@ import pytest
 from zcsd_bench import harness, spec
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
+REFERENCE_IMPORTS = {"numpy", "torch", "__future__"}
 SOURCES = sorted(p for p in spec.HERE.rglob("*.py") if "__pycache__" not in p.parts)
 
 
@@ -26,10 +29,26 @@ def test_no_module_imports_jax_or_the_jax_package(path):
     assert not top_level_imports(path) & FORBIDDEN
 
 
+def reference_imports_allowed(path) -> bool:
+    return top_level_imports(path) <= REFERENCE_IMPORTS
+
+
 @pytest.mark.parametrize("path", sorted((spec.HERE / "reference").glob("*.py")),
                          ids=lambda p: p.name)
 def test_a_reference_imports_numpy_alone(path):
-    assert top_level_imports(path) <= {"numpy", "__future__"}
+    assert reference_imports_allowed(path)
+
+
+@pytest.mark.parametrize("line", ["import repro_torch",
+                                  "from repro_torch.kernels.paged_attn import ref",
+                                  "import jax.numpy as jnp",
+                                  "from repro.core import csd"])
+def test_a_reference_importing_the_program_or_jax_is_refused(tmp_path, line):
+    path = tmp_path / "plain.py"
+    path.write_text(f"import numpy as np\nimport torch\n\n\ndef answers():\n    {line}\n")
+    assert not reference_imports_allowed(path)
+    path.write_text("import numpy as np\nimport torch\n")
+    assert reference_imports_allowed(path)
 
 
 def test_names_are_compared_whole():

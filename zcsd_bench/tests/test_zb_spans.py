@@ -5,9 +5,11 @@ import pytest
 from zcsd_bench import harness, spec
 from zcsd_bench.stats import Record
 from zcsd_bench.tracing import SliceCommand, TraceData
+from zcsd_bench.traffic import Command
 
 CONFIG = spec.load_json(spec.HERE / "configs" / "fig2-nvm.json")
 REF = spec.reference(CONFIG)
+ROOT = spec.kind(CONFIG).ROOT_SPAN
 US = 1e-6
 NEW = ("launch_us", "sync_us", "frontend_us", "gc_ms")
 
@@ -38,11 +40,12 @@ def made_up(spans, n=2, ok=(True, True)):
     cmds = []
     for k in range(n):
         mono0 = 10.0 + k * 1e-3
-        rec = Record(0, 0, 16, 65536, 0.0, 0.0, value=1)
+        rec = Record(65536, 0.0, 0.0, value=1)
         if not ok[k]:
             rec.error = "RuntimeError: planted"
-        cmds.append(SliceCommand(rec, None, 1, mono0, mono0 + 110 * US, k))
-    return TraceData(CONFIG, REF, cmds, spans, None, None)
+        cmds.append(SliceCommand(rec, Command(0, 0, 16, 65536), None, 1, mono0,
+                                 mono0 + 110 * US, k))
+    return TraceData(CONFIG, REF, ROOT, cmds, spans, None, None)
 
 
 def base(k):

@@ -11,7 +11,7 @@ MB = 1_000_000
 def closed_loop(latencies_ms, nbytes=MB, start=100.0, gap=0.0):
     recs, t = [], start
     for lat in latencies_ms:
-        recs.append(Record(0, 0, 1, nbytes, t, t + lat / 1e3))
+        recs.append(Record(nbytes, t, t + lat / 1e3))
         t += lat / 1e3 + gap
     return recs
 

@@ -5,9 +5,11 @@ from zcsd_bench import spec
 from zcsd_bench.stats import Record
 from zcsd_bench.tracing import (SliceCommand, TraceData, breakdown, gaps, merge,
                                 parse_chrome)
+from zcsd_bench.traffic import Command
 
 CONFIG = spec.load_json(spec.HERE / "configs" / "fig2-nvm.json")
 REF = spec.reference(CONFIG)
+ROOT = spec.kind(CONFIG).ROOT_SPAN
 KERNEL = "void filtered_reduce<int, 0>(int const*, long long)"
 
 
@@ -27,13 +29,14 @@ def made_up(kernels_seen=(1, 1), launches=(1, 1)):
         for _ in range(kernels_seen[k]):
             events.append(ev("kernel", KERNEL, t + 5020, 100.0))
         mono0 = 50.0 + t * 1e-6 + 2e-6          # the span clock, 50 s behind
-        rec = Record(0, 0, 65536, 1 << 28, 0.0, 0.0, value=1)
-        cmds.append(SliceCommand(rec, None, launches[k], mono0, mono0 + 5.19e-3, k))
+        rec = Record(1 << 28, 0.0, 0.0, value=1)
+        cmds.append(SliceCommand(rec, Command(0, 0, 65536, 1 << 28), None, launches[k],
+                                 mono0, mono0 + 5.19e-3, k))
         spans.append({"type": "span", "name": "tier.compute", "ts": mono0 + 1e-6,
                       "dur": 5.18e-3, "tags": {}})
     device = parse_chrome(events + [{"ph": "i", "name": "x", "ts": 0}])
     offset = (1000.0e-6) - (50.0 + 1000.0e-6 + 2e-6)
-    return TraceData(CONFIG, REF, cmds, spans, device, offset)
+    return TraceData(CONFIG, REF, ROOT, cmds, spans, device, offset)
 
 
 def test_merge_and_gaps():

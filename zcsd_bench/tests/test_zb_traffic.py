@@ -29,7 +29,8 @@ def test_scan_rounds_cover_every_zone_once_from_its_start():
     for r in range(5):
         rnd = cmds[4 * r: 4 * r + 4]
         assert sorted(c.zone for c in rnd) == list(range(4))
-        assert all(c.block_off == 0 and c.n_blocks == ZONE_BLOCKS for c in rnd)
+        assert all(c.block_off == 0 and c.n_blocks == ZONE_BLOCKS
+                   and c.nbytes == ZONE_BLOCKS * BLOCK for c in rnd)
 
 
 def test_a_scan_reads_the_blocks_that_hold_its_records():
@@ -44,10 +45,10 @@ def test_a_scan_reads_the_blocks_that_hold_its_records():
             return next(gen)
         finally:
             traffic.scrambled_zipfian = real
-    assert cmd(4, 2) == traffic.Command(0, 0, 2)
-    assert cmd(4096, 1) == traffic.Command(0, 1000, 1)
+    assert cmd(4, 2) == traffic.Command(0, 0, 2, 2 * BLOCK)
+    assert cmd(4096, 1) == traffic.Command(0, 1000, 1, BLOCK)
     last = 2048 * BLOCK // 1000 - 1                 # a scan stops at the zone's end
-    assert cmd(last, 100) == traffic.Command(0, last * 1000 // BLOCK, 1)
+    assert cmd(last, 100) == traffic.Command(0, last * 1000 // BLOCK, 1, BLOCK)
 
 
 def test_extents_rounds_hold_every_scan_length_once_for_every_seed():
@@ -63,6 +64,7 @@ def test_extents_rounds_hold_every_scan_length_once_for_every_seed():
             assert 5050 * 1000 / BLOCK <= blocks <= 5050 * 1000 / BLOCK + 200
         for c in cmds:
             assert c.n_blocks in lengths and 0 <= c.zone < 4
+            assert c.nbytes == c.n_blocks * BLOCK
             assert 0 <= c.block_off <= ZONE_BLOCKS - c.n_blocks
 
 

@@ -23,8 +23,6 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
-import numpy as np
-
 from zcsd_bench import bound
 
 SLICE_S = 3.0
@@ -36,10 +34,12 @@ TOP = 10
 
 @dataclass
 class SliceCommand:
-    """A command of the slice: its record, the port's stats, the port's
-    launch count for it, its span-clock interval and its marker's index."""
+    """A command of the slice: its record, the command, the port's stats,
+    the port's launch count for it, its span-clock interval and its
+    marker's index."""
 
     rec: object
+    command: object
     stats: object
     launches: int
     mono0: float
@@ -123,6 +123,7 @@ class TraceData:
 
     config: dict
     reference: object               # the configuration's reference module
+    root: str                       # the kind's span around one command
     commands: list                  # SliceCommand, in order
     spans: list                     # the port's spans (monotonic seconds)
     device: Optional[DeviceTrace]
@@ -147,10 +148,8 @@ class TraceData:
         return self._spans_of.get(pos, [])
 
     def bound_seconds(self, cmd: SliceCommand) -> float:
-        itemsize = np.dtype(self.config["program"]["dtype"]).itemsize
-        return bound.command_bound_seconds(
-            cmd.rec.n_blocks, int(self.config["block_bytes"]), itemsize,
-            self.reference.OPS_PER_ELEMENT, self.reference.RESULT_BYTES)
+        """The least time of the command's work, as the reference counts it."""
+        return bound.least_seconds(*self.reference.work(self.config, cmd.command))
 
     def busy_intervals(self) -> list[tuple[float, float]]:
         lo, hi = self.device.window
@@ -250,7 +249,7 @@ class SliceTracer:
             self._prof.__exit__(None, None, None)
             self._prof = None
 
-    def data(self, config: dict, reference) -> TraceData:
+    def data(self, config: dict, reference, root: str) -> TraceData:
         """What the readers get; no device trace without a card."""
         device = None
         if self._done and self._cuda:
@@ -261,7 +260,8 @@ class SliceTracer:
             diffs = [device.markers[c.index][0] - c.mono0
                      for c in self.commands if c.index in device.markers]
             offset = statistics.median(diffs) if diffs else None
-        return TraceData(config, reference, self.commands, self.spans, device, offset)
+        return TraceData(config, reference, root, self.commands, self.spans, device,
+                         offset)
 
 
 def breakdown(td: TraceData) -> Optional[dict]:

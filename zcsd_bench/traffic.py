@@ -45,6 +45,7 @@ class Command:
     zone: int
     block_off: int
     n_blocks: int
+    nbytes: int              # the zone bytes it reads
 
 
 def seed_value(seed: int) -> int:
@@ -121,7 +122,7 @@ def commands(traffic: dict, num_zones: int, zone_blocks: int, block_bytes: int,
     if traffic["extent"] == "zone":
         while True:
             for z in rng.permutation(num_zones):
-                yield Command(int(z), 0, zone_blocks)
+                yield Command(int(z), 0, zone_blocks, zone_blocks * block_bytes)
     rb, per_zone, _ = _records(traffic, zone_blocks, block_bytes)
     lo, hi = (int(n) for n in traffic["scan_records"])
     total = num_zones * per_zone
@@ -132,5 +133,5 @@ def commands(traffic: dict, num_zones: int, zone_blocks: int, block_bytes: int,
             zone, first = divmod(int(start), per_zone)
             last = min(first + int(n), per_zone)      # a scan stops at its zone's end
             off = first * rb // block_bytes
-            end = -(-(last * rb) // block_bytes)
-            yield Command(zone, off, end - off)
+            n_blocks = -(-(last * rb) // block_bytes) - off
+            yield Command(zone, off, n_blocks, n_blocks * block_bytes)
