@@ -24,6 +24,7 @@ from repro_torch.sharding.rules import (as_replicated, contract, local_region, s
 __all__ = [
     "attn_specs", "cross_attn_specs", "apply_attention", "apply_cross_attention",
     "decode_attention", "decode_cross_attention", "chunked_attention",
+    "zoned_decode_attention",
 ]
 
 NEG_INF = -1e30
@@ -271,6 +272,27 @@ def decode_attention(
         valid = age < min(pos + 1, window)
     o = _grouped_attend(cfg, q, k_cache, v_cache, valid, cfg.attn_logit_softcap)
     return _out_proj(cfg, p, o, B, 1), k_cache, v_cache
+
+
+def zoned_decode_attention(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,               # [B, 1, d] current token
+    zoned,                         # a step of a zoned cache (serve.kv_zones.ZoneStep)
+    layer: int,
+    positions: torch.Tensor,       # [B] each row's absolute position
+) -> torch.Tensor:
+    """One decode step over a zoned cache: q, k and v at each row's own
+    position, the new K/V written to the rows' reserved slots of layer
+    ``layer`` (``zoned.write``), then paged attention over the rows' zones
+    (``zoned.attend``). Returns y [B, 1, d]."""
+    B = x.shape[0]
+    pos = positions[:, None]
+    q = _project_q(cfg, p, x, pos)                             # [B,1,H,hd]
+    k_new, v_new = _project_kv(cfg, p, x, pos)                 # [B,1,KV,hd]
+    zoned.write(layer, k_new[:, 0], v_new[:, 0])
+    o = zoned.attend(layer, q[:, 0])                           # [B,H,hd]
+    return _out_proj(cfg, p, o[:, None], B, 1)
 
 
 def decode_cross_attention(

@@ -41,7 +41,7 @@ from repro_torch import _tree
 
 __all__ = [
     "Segment", "decoder_layout", "encoder_layout", "param_specs", "cache_specs",
-    "memory_len", "forward", "decode_step", "loss_fn",
+    "memory_len", "forward", "decode_step", "loss_fn", "ZONED_KINDS", "check_zoned",
 ]
 
 MOE_AUX_WEIGHT = 0.01
@@ -249,20 +249,7 @@ def _decode_kind(cfg: ModelConfig, kind: str, p: dict, x, cache, ctx: dict):
         h = apply_norm(cfg, p["ln1"], x)
         a, kc, vc = attn.decode_attention(
             cfg, p["attn"], h, cache["k"], cache["v"], pos, window=window)
-        cache = {"k": kc, "v": vc}
-        if cfg.parallel_block:
-            if kind == "attn_moe":
-                m, _ = moe_mod.apply_moe(cfg, p["moe"], h)
-            else:
-                m = apply_mlp(cfg, p["mlp"], h)
-            return x + a + m, cache
-        x = x + a
-        h2 = apply_norm(cfg, p["ln2"], x)
-        if kind == "attn_moe":
-            m, _ = moe_mod.apply_moe(cfg, p["moe"], h2)
-        else:
-            m = apply_mlp(cfg, p["mlp"], h2)
-        return x + m, cache
+        return _attn_block_rest(cfg, kind, p, x, h, a), {"k": kc, "v": vc}
     if kind == "cross_mlp":
         h = apply_norm(cfg, p["ln1"], x)
         x = x + attn.decode_cross_attention(cfg, p["cross"], h,
@@ -280,6 +267,63 @@ def _decode_kind(cfg: ModelConfig, kind: str, p: dict, x, cache, ctx: dict):
         x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
         return x, {**cache, "k": kc, "v": vc}
     raise ValueError(kind)
+
+
+def _attn_block_rest(cfg: ModelConfig, kind: str, p: dict, x, h, a):
+    """An attention block's output after its attention ``a`` of ``h`` (the
+    normed ``x``): the MLP or MoE, in parallel or in sequence."""
+    if cfg.parallel_block:
+        if kind == "attn_moe":
+            m, _ = moe_mod.apply_moe(cfg, p["moe"], h)
+        else:
+            m = apply_mlp(cfg, p["mlp"], h)
+        return x + a + m
+    x = x + a
+    h2 = apply_norm(cfg, p["ln2"], x)
+    if kind == "attn_moe":
+        m, _ = moe_mod.apply_moe(cfg, p["moe"], h2)
+    else:
+        m = apply_mlp(cfg, p["mlp"], h2)
+    return x + m
+
+
+ZONED_KINDS = ("attn_mlp", "dense0", "attn_moe")
+
+
+def check_zoned(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` unless a zoned cache can serve ``cfg``: every
+    decoder layer one of ``ZONED_KINDS``, with no sliding window and no
+    logit softcap (a zone holds a whole history; the paged kernel has
+    neither)."""
+    kinds = {k for seg in decoder_layout(cfg) for k in seg.kinds}
+    bad = sorted(kinds - set(ZONED_KINDS))
+    if cfg.sliding_window is not None:
+        bad.append("a sliding window")
+    if cfg.attn_logit_softcap is not None:
+        bad.append("a logit softcap")
+    if bad:
+        raise ValueError(f"{cfg.arch_id}: a zoned cache serves the attention kinds "
+                         f"{ZONED_KINDS} without window or softcap, not {bad}")
+
+
+def _decode_zoned(cfg: ModelConfig, params: dict, zoned, tokens: torch.Tensor,
+                  positions: torch.Tensor):
+    """:func:`decode_step` over a zoned cache: layer ``l`` of the decoder
+    (counted across segments) writes and attends through ``zoned`` as
+    layer ``l``."""
+    check_zoned(cfg)
+    x = _embed_tokens(cfg, params, tokens)
+    layer = 0
+    for seg, sp in zip(decoder_layout(cfg), params["segments"]):
+        for layer_p in _layers(sp, seg.repeats):
+            for j, kind in enumerate(seg.kinds):
+                p = layer_p[f"k{j}_{kind}"]
+                h = apply_norm(cfg, p["ln1"], x)
+                a = attn.zoned_decode_attention(cfg, p["attn"], h, zoned, layer, positions)
+                x = _attn_block_rest(cfg, kind, p, x, h, a)
+                layer += 1
+    x = apply_norm(cfg, params["final_norm"], x)
+    return _lm_head(cfg, params, x)[:, 0, :]
 
 
 # -------------------------------------------------------------- cache spec
@@ -451,11 +495,19 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     return logits, aux * MOE_AUX_WEIGHT, (caches if collect_cache else None)
 
 
-def decode_step(cfg: ModelConfig, params: dict, cache: list, tokens: torch.Tensor,
-                pos: int):
+def decode_step(cfg: ModelConfig, params: dict, cache, tokens: torch.Tensor, pos):
     """One decode step. tokens: [B, 1]; pos: the current absolute position
     (a Python int, as every row of the batch is at the same position).
-    Updates ``cache`` in place and returns (logits [B, V], cache)."""
+    Updates ``cache`` in place and returns (logits [B, V], cache).
+
+    With ``pos`` a ``[B]`` tensor of each row's own position, ``cache`` is
+    one step of a zoned cache (``serve.kv_zones.ZoneStep``: its rows'
+    reserved slots and zone table): every layer writes its new K/V there
+    and attends over the rows' zones with the paged kernel. Only the
+    unwindowed attention kinds (``ZONED_KINDS``) take it; any other raises
+    ``ValueError``."""
+    if isinstance(pos, torch.Tensor):
+        return _decode_zoned(cfg, params, cache, tokens, pos), cache
     x = _embed_tokens(cfg, params, tokens)
     ctx = {"pos": int(pos)}
     for seg, sp, sc in zip(decoder_layout(cfg), params["segments"], cache):

@@ -16,6 +16,16 @@ maps sequences onto fixed-size KV zones from a shared pool:
 In PyTorch the pool is two preallocated ``[NZ, ZL, KV, hd]`` tensors on an
 explicit device, and a Zone Append writes one token slot of each in place
 (the reference rebuilds its arrays with ``.at[].set``).
+
+:class:`KVZoneCache` is a model's whole cache in one allocation: ``[L, NZ,
+ZL, KV, hd]`` K and V, one free list and one zone-table row a sequence for
+all ``L`` layers, so ``k[l]`` is the pool the kernel reads for layer ``l``.
+A decode step reserves its rows' slots and copies its zone table to the
+card once (:meth:`KVZoneCache.reserve`), then writes and attends layer by
+layer; a prompt's K/V for every layer goes in with one copy a zone run
+(:meth:`KVZoneCache.admit`). Traced, it records ``kv.admit``, ``kv.evict``,
+``kv.table``, ``kv.append`` (one layer's write) and ``kv.attend`` (one
+layer's launch, host side).
 """
 from __future__ import annotations
 
@@ -26,13 +36,15 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
-from repro_torch._device import host_to_device, resolve_device
+from repro_torch._device import host_tensor, host_to_device, resolve_device
+from repro_torch.kernels.paged_attn import kernel as paged_kernel
 from repro_torch.kernels.paged_attn.ops import paged_attention
+from repro_torch.telemetry import trace
 from repro_torch.telemetry.metrics import MetricsRegistry, StatsView
 
 _POOL_SEQ = itertools.count()
 
-__all__ = ["KVZonePool", "KVZoneError", "pool_from_reference"]
+__all__ = ["KVZonePool", "KVZoneCache", "ZoneStep", "KVZoneError", "pool_from_reference"]
 
 
 class KVZoneError(Exception):
@@ -45,20 +57,16 @@ class _SeqState:
     length: int = 0
 
 
-class KVZonePool:
-    """num_zones zones of zone_len tokens each, [KV, head_dim] per token,
-    on ``device`` (default the card; raises without CUDA)."""
+class _ZoneAllocator:
+    """The zones' bookkeeping that a pool of one layer and a cache of every
+    layer share: the free list, each sequence's zone-table row and length,
+    and the counters."""
 
-    def __init__(self, *, num_zones: int, zone_len: int, kv_heads: int,
-                 head_dim: int, max_zones_per_seq: int,
-                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
-        self.device = resolve_device(device)
+    def _init_zones(self, num_zones: int, zone_len: int, max_zones_per_seq: int,
+                    counters: tuple[str, ...] = ()) -> None:
         self.num_zones = num_zones
         self.zone_len = zone_len
         self.max_zones_per_seq = max_zones_per_seq
-        shape = (num_zones, zone_len, kv_heads, head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
         self._free = list(range(num_zones))
         self._seqs: dict[int, _SeqState] = {}
         # pool counters on a private registry (pools are unbounded);
@@ -67,9 +75,10 @@ class KVZonePool:
         self._c_alloc = self.metrics.counter("zones_allocated")
         self._c_reset = self.metrics.counter("zones_reset")
         self._c_tokens = self.metrics.counter("tokens_appended")
-        self.stats = StatsView({"zones_allocated": self._c_alloc,
-                                "zones_reset": self._c_reset,
-                                "tokens_appended": self._c_tokens})
+        views = {"zones_allocated": self._c_alloc, "zones_reset": self._c_reset,
+                 "tokens_appended": self._c_tokens}
+        views.update((name, self.metrics.counter(name)) for name in counters)
+        self.stats = StatsView(views)
 
     # ---------------------------------------------------------- lifecycle
     def add_sequence(self, seq_id: int) -> None:
@@ -79,12 +88,13 @@ class KVZonePool:
 
     def evict(self, seq_id: int) -> None:
         """Host-managed GC: reset the sequence's zones back to the pool."""
-        st = self._seqs.pop(seq_id, None)
-        if st is None:
-            return
-        for z in st.zones:
-            self._free.append(z)
-        self._c_reset.inc(len(st.zones))
+        with trace.span("kv.evict"):
+            st = self._seqs.pop(seq_id, None)
+            if st is None:
+                return
+            for z in st.zones:
+                self._free.append(z)
+            self._c_reset.inc(len(st.zones))
 
     def _alloc_zone(self, st: _SeqState) -> int:
         if len(st.zones) >= self.max_zones_per_seq:
@@ -95,6 +105,37 @@ class KVZonePool:
         st.zones.append(z)
         self._c_alloc.inc()
         return z
+
+    def _check_room(self, states: list[_SeqState], new_zones: list[int]) -> None:
+        """Raise the error that appends in order would meet, ``states[i]``
+        taking ``new_zones[i]`` new zones, before any zone is taken: each
+        zone checks the sequence's cap, then the free list."""
+        free = len(self._free)
+        for st, n in zip(states, new_zones):
+            at_cap = self.max_zones_per_seq - len(st.zones)    # zones until the cap
+            if n > at_cap and at_cap <= free:
+                raise KVZoneError("sequence exceeds max_zones_per_seq")
+            if n > free:
+                raise KVZoneError("zone pool exhausted (evict something)")
+            free -= n
+
+    def utilization(self) -> float:
+        used = self.num_zones - len(self._free)
+        return used / self.num_zones
+
+
+class KVZonePool(_ZoneAllocator):
+    """num_zones zones of zone_len tokens each, [KV, head_dim] per token,
+    on ``device`` (default the card; raises without CUDA)."""
+
+    def __init__(self, *, num_zones: int, zone_len: int, kv_heads: int,
+                 head_dim: int, max_zones_per_seq: int,
+                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+        self.device = resolve_device(device)
+        shape = (num_zones, zone_len, kv_heads, head_dim)
+        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self._init_zones(num_zones, zone_len, max_zones_per_seq)
 
     # ------------------------------------------------------------- append
     def append(self, seq_id: int, k_tok: torch.Tensor, v_tok: torch.Tensor) -> None:
@@ -151,9 +192,123 @@ class KVZonePool:
         tab, lengths = self.zone_table(seq_ids)
         return paged_attention(q, self.k, self.v, tab, lengths)
 
-    def utilization(self) -> float:
-        used = self.num_zones - len(self._free)
-        return used / self.num_zones
+
+@dataclass(frozen=True)
+class ZoneStep:
+    """One decode step's rows in a :class:`KVZoneCache`: their new token's
+    zone and slot, the step's zone table and lengths (the new token
+    included) and each row's position (``lengths - 1``), all on the card:
+    int32 views of the cache's step buffer for ``B`` rows, copied into once
+    a step, so every step of ``B`` rows reads its tensors at one address (a
+    captured decode replays over them) and holds until the next
+    :meth:`KVZoneCache.reserve` of ``B`` rows. A model's decode writes and
+    attends through it, layer by layer."""
+
+    cache: "KVZoneCache"
+    zones: torch.Tensor          # [B]
+    slots: torch.Tensor          # [B]
+    lengths: torch.Tensor        # [B]
+    positions: torch.Tensor      # [B]
+    table: torch.Tensor          # [B, max_zones_per_seq], -1 = unused
+
+    def write(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+        self.cache.write(layer, (self.zones, self.slots), k_new, v_new)
+
+    def attend(self, layer: int, q: torch.Tensor) -> torch.Tensor:
+        return self.cache.attend(layer, q, self.table, self.lengths)
+
+
+class KVZoneCache(_ZoneAllocator):
+    """Every layer's K/V in one zoned allocation: ``k`` and ``v`` are
+    ``[num_layers, num_zones, zone_len, KV, head_dim]`` on ``device``, with
+    one free list and one zone-table row a sequence for all layers (a
+    zone id names the same zone of every layer). Its bytes and errors are
+    those of per-token appends to one :class:`KVZonePool` a layer, all
+    taking the same zones; :meth:`admit` and :meth:`reserve` check for
+    room first and change nothing when they raise."""
+
+    def __init__(self, *, num_layers: int, num_zones: int, zone_len: int,
+                 kv_heads: int, head_dim: int, max_zones_per_seq: int,
+                 dtype: torch.dtype = torch.bfloat16, device="cuda"):
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":      # its attends' kernel builds while the caller sets up
+            paged_kernel.load_in_background()
+        shape = (num_layers, num_zones, zone_len, kv_heads, head_dim)
+        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.num_layers = num_layers
+        self._step_bufs: dict[int, torch.Tensor] = {}     # rows -> the step buffer
+        self._init_zones(num_zones, zone_len, max_zones_per_seq, ("tokens_admitted",))
+        self._c_admitted = self.metrics.counter("tokens_admitted")
+
+    def admit(self, seq_id: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        """A new sequence holding a prompt's K/V (``[num_layers, n, KV,
+        head_dim]``, any device and float dtype): one in-place copy of K
+        and one of V a zone run, each for every layer."""
+        if k.dim() != 4 or k.shape != v.shape or k.shape[0] != self.num_layers:
+            raise ValueError(f"need k and v of one [{self.num_layers}, n, KV, head_dim] "
+                             f"shape, got {tuple(k.shape)} and {tuple(v.shape)}")
+        n = k.shape[1]
+        zones = -(-n // self.zone_len)
+        with trace.span("kv.admit", tokens=n, zones=zones):
+            if seq_id in self._seqs:
+                raise KVZoneError(f"sequence {seq_id} exists")
+            st = _SeqState()
+            self._check_room([st], [zones])
+            self._seqs[seq_id] = st
+            for done in range(0, n, self.zone_len):
+                run = min(n - done, self.zone_len)
+                z = self._alloc_zone(st)
+                self.k[:, z, :run].copy_(k[:, done:done + run])
+                self.v[:, z, :run].copy_(v[:, done:done + run])
+            st.length = n
+            self._c_admitted.inc(n)
+
+    def reserve(self, seq_ids: list[int]) -> ZoneStep:
+        """One decode step's slots: each row whose next slot opens a zone
+        gets one, every row's length grows by its new token, and the rows'
+        zones, slots, lengths, positions and zone table go to the card in
+        one copy (into the step buffer of ``len(seq_ids)`` rows). The K/V of
+        the new tokens come with :meth:`write`."""
+        with trace.span("kv.table"):
+            if len(set(seq_ids)) != len(seq_ids):
+                raise ValueError("a sequence appears twice in one step")
+            states = [self._seqs[sid] for sid in seq_ids]
+            B, MZ, ZL = len(states), self.max_zones_per_seq, self.zone_len
+            self._check_room(states, [int(st.length % ZL == 0) for st in states])
+            buf = np.full(4 * B + B * MZ, -1, np.int32)
+            table = buf[4 * B:].reshape(B, MZ)
+            for i, st in enumerate(states):
+                slot = st.length % ZL
+                if slot == 0:
+                    self._alloc_zone(st)
+                st.length += 1
+                buf[i], buf[B + i] = st.zones[-1], slot
+                buf[2 * B + i], buf[3 * B + i] = st.length, st.length - 1
+                table[i, :len(st.zones)] = st.zones
+            self._c_tokens.inc(B)
+            dev = self._step_bufs.get(B)
+            if dev is None:
+                dev = self._step_bufs[B] = torch.empty(buf.shape, dtype=torch.int32,
+                                                       device=self.device)
+            dev.copy_(host_tensor(buf))
+            return ZoneStep(self, dev[:B], dev[B:2 * B], dev[2 * B:3 * B],
+                            dev[3 * B:4 * B], dev[4 * B:].view(B, MZ))
+
+    def write(self, layer: int, slots: tuple[torch.Tensor, torch.Tensor],
+              k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+        """The step's new K/V of layer ``layer`` (``[B, KV, head_dim]``) at
+        the reserved ``(zones, slots)``: one indexed write of K, one of V."""
+        with trace.span("kv.append"):
+            self.k[layer].index_put_(slots, k_new)
+            self.v[layer].index_put_(slots, v_new)
+
+    def attend(self, layer: int, q: torch.Tensor, table: torch.Tensor,
+               lengths: torch.Tensor) -> torch.Tensor:
+        """q ``[B, H, head_dim]`` over layer ``layer``'s zones: one call of
+        the paged-attention kernel on ``k[layer]``, ``v[layer]``."""
+        with trace.span("kv.attend"):
+            return paged_attention(q, self.k[layer], self.v[layer], table, lengths)
 
 
 def _pool_tensor(a: np.ndarray) -> torch.Tensor:
