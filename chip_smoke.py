@@ -38,6 +38,13 @@ Phases, one JSON line each; any failed phase exits non-zero:
             length-0 row, an all -1 row, a -1 hole, and rows at the
             kernel's split boundaries; each plan's shared memory against
             the kernel's own.
+            decode_fused: add_rmsnorm, rope_qk and swiglu at the
+            kvzone-granite.decode cell's shapes (64 rows, d 4,096, H/KV/hd
+            32/8/128, d_ff 14,336, positions 0-4,095), bf16 and float32,
+            against the model's plain functions (the add and apply_norm,
+            rope, silu(gate) * up): rope_qk and swiglu bit for bit,
+            add_rmsnorm's sum bit for bit and its norm within one bf16
+            step (float32: a relative 1e-6), one launch a call
   offload   the paper's Figure 2 offload through NvmCsd: one 256 MiB zone of
             random int32, count > RAND_MAX/2, on the kernel and jit tiers
             (interp on a 4 MiB zone); launch counts read around the run
@@ -84,6 +91,16 @@ Phases, one JSON line each; any failed phase exits non-zero:
             2e-3 where the reference's tests run it, granite's prefill then
             decode at 5e-3 and its card forward against the CPU's at 2e-3,
             shapes and finite values elsewhere. No kernel of the port runs
+  zoned     granite-8b at its published widths and depth (bf16, the
+            kvzone-granite.decode cell's N(0, 0.02^2) matrices, norm scales
+            near 1) served from a KVZoneCache through
+            ServeModel.decode_sessions, one CUDA graph a step: 64 sessions
+            of 16-500 prompt tokens, 6 steps. The paged and fused kernels'
+            launches counted a step from 0 (73 add_rmsnorm and 36 each of
+            rope_qk, swiglu and paged_attention a replay, twice that at the
+            first step; they count into the kernels line), each step's
+            logits against the plain functions' eager step within the
+            cell's limits, and a row's neighbour's logits must fail them
   train     the training path: h2o-danube-1.8b at its published widths and
             depth (24 layers, bf16, 1.83 B random parameters) through
             launch/train.py's wiring (a zoned corpus of 4,097-token records,
@@ -143,11 +160,14 @@ Phases, one JSON line each; any failed phase exits non-zero:
             kernels line
   timing    kernel, plain-version and library times on the card (CUDA events),
             with the device kernels one call runs and their launches a call
-            (torch.profiler; 1 for a zone-filter row, 2 for the paged row,
-            held); the paged row with its plan (splits, CTAs, shared
-            memory) and the registers and spills of the paged_partial
-            instance it runs. It runs right after the build: torch.profiler
-            sees every kernel early in a process, not late (profiled_ms)
+            (torch.profiler; 1 for a zone-filter or fused row, 2 for the
+            paged row, held); the paged row with its plan (splits, CTAs,
+            shared memory) and the registers and spills of the paged_partial
+            instance it runs; the fused rows at the cell's shapes in bf16
+            beside the plain functions' time and launches and a library
+            yardstick (F.rms_norm, F.silu; none for RoPE). It runs right
+            after the build: torch.profiler sees every kernel early in a
+            process, not late (profiled_ms)
 
 Then the ``nvidia-smi`` line, the kernel table as one JSON object, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -206,6 +226,24 @@ EDGE_ROWS = 8                   # paged_tables(edges=True) sets rows 0..7
 GRANITE = dict(num_zones=4096, zone_len=128, kv_heads=8, head_dim=128,
                max_zones_per_seq=64)
 GRANITE_HEADS = 32
+# the zoned decode step's elementwise kernels (kernels/decode_fused) at the
+# kvzone-granite.decode cell's shapes: granite-8b's widths, 64 rows a step
+# at ragged positions 0..4,095
+FUSED_SHAPE = dict(B=64, d=4096, H=32, KV=8, hd=128, d_ff=14336)
+FUSED_TOP_POS = 4095
+# the zoned phase: granite-8b at its published widths and depth in bf16
+# served from a KVZoneCache by ServeModel.decode_sessions (one CUDA graph a
+# step), the cell's path: ZONED_ROWS sessions of ragged prompts in
+# ZONED_PROMPT tokens, ZONED_STEPS steps. Every matrix N(0, 0.02^2) (the
+# cell's init_std), every norm scale 1 + N(0, 0.1^2) so that the scale's
+# product does work. The graphed step's logits against the plain functions'
+# eager step within the cell's limits (zcsd_bench/configs/
+# kvzone-granite.json: the largest logit gap and logsumexp gap a row)
+ZONED_ROWS, ZONED_STEPS = 64, 6
+ZONED_PROMPT = (16, 500)
+ZONED_POOL = dict(num_zones=320, zone_len=128, max_zones_per_seq=8)
+ZONED_INIT_STD, ZONED_SCALE_STD = 0.02, 0.1
+ZONED_LIMITS = dict(logit_gap=1.0, lse_gap=0.012)
 # (atol, rtol) of the paged_attn checks: |kernel - ref.py| <= atol + rtol *
 # |ref.py| everywhere. Both compute in float32 from the same inputs, so in
 # float32 they differ by the order of the sums (3.6e-6 at most on an H100),
@@ -581,7 +619,7 @@ def phase_build(kernel_modules, _build):
 
 
 def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref, NvmCsd,
-                  ZonedDevice, csd_mod):
+                  ZonedDevice, csd_mod, df_kernel, common, cfg):
     """Each kernel against its plain version; returns max_abs_err per kernel."""
     errs = {"filtered_reduce": 0.0, "filtered_reduce_batched": 0.0}
     failures, n_checks = [], 0
@@ -653,12 +691,16 @@ def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref, NvmCs
         torch, pa_kernel, pa_ref, failures)
     errs["paged_attention"] = max(paged_errs.values())
     n_checks += paged_checks
+    fused_errs, fused_n = fused_checks(torch, df_kernel, common, cfg, failures)
+    errs.update(fused_errs)
+    n_checks += fused_n
     torch.cuda.synchronize()
     emit("kernels", checks=n_checks, zone_filter_bit_identity=identity,
          zone_filter_in_place=in_place,
          paged_attention_checks=paged_checks,
          paged_attention_max_abs_err=paged_errs,
-         paged_attention_share_of_limit=paged_shares, failures=failures[:10],
+         paged_attention_share_of_limit=paged_shares, decode_fused_checks=fused_n,
+         failures=failures[:10],
          n_failures=len(failures), max_abs_err=errs)
     check(not failures, f"{len(failures)} kernel checks disagree with the plain version")
     return errs
@@ -972,6 +1014,79 @@ def paged_attention_checks(torch, pa_kernel, pa_ref, failures):
             del q, k, v, got, want
     torch.cuda.empty_cache()
     return errs, shares, n
+
+
+def fused_inputs(torch, dtype, seed):
+    """One zoned step's operands at FUSED_SHAPE in ``dtype``: the residual
+    stream ``x``, a residual ``r``, a norm scale, q and k of the step's
+    rows, their positions (the first at 0, the second at FUSED_TOP_POS),
+    and the MLP's gate and up."""
+    B, d, H, KV, hd, ff = FUSED_SHAPE.values()
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=DEVICE) * scale).to(dtype)
+    pos = torch.randint(0, FUSED_TOP_POS + 1, (B,), generator=g, device=DEVICE,
+                        dtype=torch.int32)
+    pos[0], pos[1] = 0, FUSED_TOP_POS
+    return dict(x=randn(B, 1, d), r=randn(B, 1, d, scale=3.0), scale=randn(d),
+                q=randn(B, 1, H, hd), k=randn(B, 1, KV, hd), pos=pos,
+                gate=randn(B, 1, ff, scale=4.0), up=randn(B, 1, ff))
+
+
+def fused_checks(torch, df_kernel, common, cfg, failures):
+    """The zoned step's fused kernels against the model's plain functions on
+    the card at FUSED_SHAPE, in bfloat16 and float32: ({kernel: max_abs_err},
+    checks). swiglu is ``silu(gate) * up`` and rope_qk ``rope`` of q and of
+    k, bit for bit; add_rmsnorm's sum ``x + r`` bit for bit, and its norm
+    ``apply_norm``'s within one bfloat16 step, or in float32 within a
+    relative 1e-6: the row's sum of squares adds in another order than
+    PyTorch's mean, which moves the row's rsqrt by an ulp or a few. Each
+    call must count one launch."""
+    errs = dict.fromkeys(("add_rmsnorm", "rope_qk", "swiglu"), 0.0)
+    n = 0
+
+    def launched(wrapper, *args):
+        before = wrapper.launches
+        out = wrapper(*args)
+        if wrapper.launches != before + 1:
+            failures.append(f"{wrapper.__name__}: {wrapper.launches - before} launches a call")
+        return out
+
+    def gap(got, want):
+        return float((got.float() - want.float()).abs().max())
+    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
+        t = fused_inputs(torch, dtype, seed=900 + i)
+        label = str(dtype).removeprefix("torch.")
+        got = launched(df_kernel.swiglu, t["gate"], t["up"])
+        want = common.silu(t["gate"]) * t["up"]
+        errs["swiglu"] = max(errs["swiglu"], gap(got, want))
+        if not torch.equal(got, want):
+            failures.append(f"swiglu {label}: {gap(got, want)} from silu(gate) * up")
+        rot = df_kernel.rope_table(t["pos"], FUSED_SHAPE["hd"], cfg.rope_theta)
+        got = launched(df_kernel.rope_qk, t["q"][:, 0], t["k"][:, 0], *rot)
+        for name, x, y in (("q", t["q"], got[0]), ("k", t["k"], got[1])):
+            want = common.rope(x, t["pos"][:, None, None], cfg.rope_theta)[:, 0]
+            errs["rope_qk"] = max(errs["rope_qk"], gap(y, want))
+            if not torch.equal(y, want):
+                failures.append(f"rope_qk {label} {name}: {gap(y, want)} from rope")
+        n += 2
+        for r in (t["r"], None):
+            got_x, got_h = launched(df_kernel.add_rmsnorm, t["x"], r, t["scale"])
+            want_x = t["x"] if r is None else t["x"] + r
+            want = common.apply_norm(cfg, {"scale": t["scale"]}, want_x).float()
+            diff = (got_h.float() - want).abs()
+            errs["add_rmsnorm"] = max(errs["add_rmsnorm"], float(diff.max()))
+            if dtype == torch.bfloat16:     # one step: 2^-7 of the value's power of two
+                step = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+                ok = bool((diff <= step).all())
+            else:
+                ok = float((diff / want.abs().clamp(min=1e-30)).max()) <= 1e-6
+            n += 1
+            if not torch.equal(got_x, want_x) or not ok:
+                failures.append(f"add_rmsnorm {label} residual={r is not None}: x' equal "
+                                f"{torch.equal(got_x, want_x)}, h {float(diff.max())} apart")
+    return errs, n
 
 
 def phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod, zf_kernel, runs=5):
@@ -2068,6 +2183,90 @@ def phase_model(torch, cfgs, models, api, serve_mod, tree_mod, counted, card):
                MODEL_ARCH + " held check": {"num_layers": 1},
                **{a: c for a, c in EXACT_LAYERS.items()}},
          seconds=time.perf_counter() - t_phase)
+
+
+def phase_zoned(torch, cfgs, models, serve_mod, df_kernel, pa_kernel, card):
+    """granite-8b served from a zoned KV cache as the kvzone-granite.decode
+    cell serves it: ServeModel.decode_sessions over a KVZoneCache, one CUDA
+    graph a step with the paged kernel and the fused elementwise kernels
+    inside. ZONED_ROWS sessions, each a prompt prefilled and admitted, then
+    ZONED_STEPS steps of one token a session. The wrappers' counts are set
+    to 0 just before the steps and read a step at a time: 2 L + 1
+    add_rmsnorm and L each of rope_qk, swiglu and paged_attention a step
+    (twice that at the first, whose eager run precedes the capture). Each
+    step's logits against the plain functions' eager step on a second
+    cache (tests/test_torch_decode_fused.py::plain_zoned_step) within
+    ZONED_LIMITS, and the same logits one row over (a row served another
+    row's answer) must fail them. Returns the launches a wrapper."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_decode_fused import plain_zoned_step
+    from repro_torch.serve import KVZoneCache
+    t_phase = time.perf_counter()
+    cfg = cfgs.get_config(MODEL_ARCH)
+    L = cfg.num_layers
+    model = serve_mod.ServeModel(cfg, models.init_params(models.param_specs(cfg), SEED, DEVICE),
+                                 device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    for name, t in model.named_buffers():
+        if name.endswith("scale"):
+            t.normal_(1.0, ZONED_SCALE_STD, generator=g)
+        else:
+            t.normal_(0.0, ZONED_INIT_STD, generator=g)
+
+    def new_cache():
+        return KVZoneCache(num_layers=L, kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                           dtype=torch.bfloat16, device=DEVICE, **ZONED_POOL)
+    graphed, eager = new_cache(), new_cache()
+    rng = np.random.default_rng(SEED)
+    rows = list(range(ZONED_ROWS))
+    lengths = rng.integers(ZONED_PROMPT[0], ZONED_PROMPT[1] + 1, ZONED_ROWS)
+    for sid, n in zip(rows, lengths):
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, int(n)))).to(DEVICE)
+        _, k, v = model.prompt_kv({"tokens": prompt})
+        for c in (graphed, eager):
+            c.admit(sid, k[:, 0], v[:, 0])
+        del k, v
+    wrappers = {"add_rmsnorm": df_kernel.add_rmsnorm, "rope_qk": df_kernel.rope_qk,
+                "swiglu": df_kernel.swiglu, "paged_attention": pa_kernel.paged_attention_kernel}
+    per_step = {"add_rmsnorm": 2 * L + 1, "rope_qk": L, "swiglu": L, "paged_attention": L}
+    for w in wrappers.values():
+        w.launches = 0
+    steps = []
+    for t in range(ZONED_STEPS):
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (ZONED_ROWS, 1))).to(DEVICE)
+        before = {k: w.launches for k, w in wrappers.items()}
+        _, got = model.decode_sessions(graphed, rows, tok)
+        seen = {k: w.launches - before[k] for k, w in wrappers.items()}
+        want = plain_zoned_step(cfg, model.tree(), eager.reserve(rows), tok).float()
+        got = got.float()
+
+        def gaps(want):
+            lse = torch.logsumexp(got, -1) - torch.logsumexp(want, -1)
+            return dict(logit_gap=float((got - want).abs().max()),
+                        lse_gap=float(lse.abs().max()))
+
+        def within(gap):
+            return all(gap[k] <= ZONED_LIMITS[k] for k in ZONED_LIMITS)
+        rec = dict(launches=seen, **gaps(want), neighbour=gaps(want.roll(1, 0)),
+                   finite=bool(torch.isfinite(got).all()))
+        steps.append(rec)
+        check(seen == {k: n * (2 if t == 0 else 1) for k, n in per_step.items()},
+              f"step {t}: launches {seen}, a replay should make {per_step}")
+        check(rec["finite"] and within(rec),
+              f"step {t}: the graphed step {rec['logit_gap']} (logits) and "
+              f"{rec['lse_gap']} (logsumexp) from the plain step, limits {ZONED_LIMITS}")
+        check(not within(rec["neighbour"]),
+              f"step {t}: a row's neighbour's logits pass the check {rec['neighbour']}")
+    launches = {k: sum(st["launches"][k] for st in steps) for k in wrappers}
+    graph_launches = {w.__name__: n for w, n in model._graph.launches.items()}
+    emit("zoned", card=card, rows=ZONED_ROWS, prompt_tokens=[int(lengths.min()),
+         int(lengths.max())], pool=ZONED_POOL, limits=ZONED_LIMITS, steps=steps,
+         kernel_launches=launches, graph_launches_a_replay=graph_launches,
+         seconds=time.perf_counter() - t_phase)
+    del model, graphed, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------------------------ training
@@ -3200,7 +3399,65 @@ def paged_timing(torch, pa_kernel, pa_ref, build):
     return row
 
 
-def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref, build):
+def fused_timing(torch, df_kernel, common, cfg):
+    """The rows of the zoned step's fused kernels at FUSED_SHAPE in bf16,
+    the cell's dtype: each kernel beside the plain functions it replaces
+    (``plain_*``, with their launches a call) and a library yardstick where
+    PyTorch has one: ``F.rms_norm`` of ``x + r``, ``F.silu(gate) * up``
+    (each rounds once where the plain code rounds after every op); none
+    rotates half-split RoPE. rope_qk's row has ``table_ms``, the plain ops
+    that make the step's angles once a step (rope_table)."""
+    import torch.nn.functional as F
+    B, d, H, KV, hd, ff = FUSED_SHAPE.values()
+    t = fused_inputs(torch, torch.bfloat16, seed=950)
+    x, r, scale, gate, up, pos = (t[k] for k in ("x", "r", "scale", "gate", "up", "pos"))
+    q3, k3 = t["q"][:, 0].contiguous(), t["k"][:, 0].contiguous()
+    rot = df_kernel.rope_table(pos, hd, cfg.rope_theta)
+    act, qk = B * d * 2, B * (H + KV) * hd
+    rms_norm = getattr(F, "rms_norm", None)
+    rows = {
+        # reads x, r and the scale, writes x' and h; an add, a square, a sum
+        # and two products a value
+        "add_rmsnorm": (4 * act + d * 2, 5 * B * d,
+                        lambda: df_kernel.add_rmsnorm(x, r, scale),
+                        lambda: common.apply_norm(cfg, {"scale": scale}, x + r),
+                        rms_norm and (lambda: rms_norm(x + r, (d,), weight=scale, eps=1e-6))),
+        # reads q, k and the angles, writes q and k; two products and a sum
+        # a value
+        "rope_qk": (2 * qk * 2 + 2 * B * hd // 2 * 4, 3 * qk,
+                    lambda: df_kernel.rope_qk(q3, k3, *rot),
+                    lambda: (common.rope(t["q"], pos[:, None, None], cfg.rope_theta),
+                             common.rope(t["k"], pos[:, None, None], cfg.rope_theta)),
+                    None),
+        # reads gate and up, writes the product; exp, a sum, a reciprocal
+        # and two products a value
+        "swiglu": (3 * B * ff * 2, 5 * B * ff,
+                   lambda: df_kernel.swiglu(gate, up),
+                   lambda: common.silu(gate) * up,
+                   lambda: F.silu(gate) * up),
+    }
+    out = {}
+    for name, (n_bytes, n_ops, kernel, plain, library) in rows.items():
+        k, p = measure(torch, kernel), measure(torch, plain)
+        lib = measure(torch, library) if library else None
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        out[name] = dict(ms=k["ms"], device_ms=k["device_ms"], host_us=k["host_us"],
+                         host_us_mean=k["host_us_mean"], device_kernels=k["device_kernels"],
+                         device_launches_per_call=k["device_launches_per_call"],
+                         plain_ms=p["ms"], plain_device_ms=p["device_ms"],
+                         plain_launches_per_call=p["device_launches_per_call"],
+                         library_ms=lib["ms"] if lib else None,
+                         library_device_ms=lib["device_ms"] if lib else None,
+                         bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
+                         share_of_bound=b_ms / k["ms"], bytes=n_bytes, operations=n_ops,
+                         shape=FUSED_SHAPE)
+    out["rope_qk"]["table_ms"] = cuda_ms(
+        torch, lambda: df_kernel.rope_table(pos, hd, cfg.rope_theta))
+    return out
+
+
+def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref, build,
+                 df_kernel, common, cfg):
     """Times at the main path's shape, on a zone already on the card. ``ms``
     is CUDA events around 20 back-to-back calls; ``device_ms`` what the
     profiler saw on the card per call; ``host_us`` the enqueue cost (the
@@ -3251,13 +3508,40 @@ def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref, 
                          share_of_bound=b_ms / k["ms"], shape=list(pages.shape))
     copy_ms = measure(torch, lambda: x.clone())            # a plain 256 MiB read+write
     out["paged_attention"] = paged_timing(torch, pa_kernel, pa_ref, build)
+    out.update(fused_timing(torch, df_kernel, common, cfg))
     emit("timing", shape=list(data.reshape(-1, 1024).shape), h2d_event_ms=h2d,
          h2d_gb_per_s=data.nbytes / h2d / 1e6, clone_256MiB=copy_ms,
          clocks_after=clocks(), **out)
     seen = {name: row["device_launches_per_call"] for name, row in out.items()}
     check(all(n == (2 if name == "paged_attention" else 1) for name, n in seen.items()),
-          f"device launches a call {seen}: one a zone-filter call, two a paged call")
+          f"device launches a call {seen}: one a zone-filter or fused call, two a paged "
+          "call")
     return out
+
+
+def kernel_table(times, errs, launches):
+    """The kernels line: each hand-written kernel with its source, what it
+    replaces, its launches on the main paths, its largest error against its
+    plain version, and its times beside the bound."""
+    zf_source = "src/repro_torch/kernels/zone_filter/csrc/zone_filter.cu"
+    df_source = "src/repro_torch/kernels/decode_fused/csrc/decode_fused.cu"
+    fused = "none: XLA fuses these passes of src/repro/models"
+    table = []
+    for kname, source, replaces in (
+            ("filtered_reduce", zf_source, "src/repro/kernels/zone_filter/kernel.py:75"),
+            ("filtered_reduce_batched", zf_source,
+             "src/repro/kernels/zone_filter/kernel.py:147"),
+            ("paged_attention", "src/repro_torch/kernels/paged_attn/csrc/paged_attn.cu",
+             "src/repro/kernels/paged_attn/kernel.py:73"),
+            ("add_rmsnorm", df_source, fused), ("rope_qk", df_source, fused),
+            ("swiglu", df_source, fused)):
+        t = times[kname]
+        table.append({"name": kname, "route": "cuda", "source": source,
+                      "replaces": replaces, "launches": launches[kname],
+                      "max_abs_err": errs[kname], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                      "library_ms": t["library_ms"]})
+    return table
 
 
 def main():
@@ -3290,6 +3574,7 @@ def main():
     from repro_torch.kernels.zone_filter import ops as zf_ops
     from repro_torch.kernels.paged_attn import kernel as pa_kernel
     from repro_torch.kernels.paged_attn import ref as pa_ref
+    from repro_torch.kernels.decode_fused import kernel as df_kernel
     from repro_torch.kernels.zone_filter import ref as zf_ref
     from repro_torch.serve import KVZonePool
     from repro_torch.telemetry import trace
@@ -3298,6 +3583,7 @@ def main():
     import repro_torch.configs as cfgs
     import repro_torch.models as models
     import repro_torch.models.api as api
+    import repro_torch.models.common as common
     import repro_torch.serve.step as serve_mod
     import repro_torch.launch.train as launch
     import repro_torch.train.optimizer as opt_mod
@@ -3307,13 +3593,14 @@ def main():
     t_start = time.perf_counter()
     try:
         name, smi_line = phase_device(torch)
-        build = phase_build([zf_kernel, pa_kernel], _build)
+        build = phase_build([zf_kernel, pa_kernel, df_kernel], _build)
+        granite = cfgs.get_config(MODEL_ARCH)
         zone = np.random.default_rng(0).integers(0, RAND_MAX, ZONE_BYTES // 4, dtype=np.int32)
         times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, zone, pa_kernel, pa_ref,
-                             build)       # the Figure 2 zone, as phase_offload draws it
-        del zone
+                             build, df_kernel, common, granite)   # the Figure 2 zone,
+        del zone                                                  # as phase_offload draws it
         errs = phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref, NvmCsd,
-                             ZonedDevice, csd_mod)
+                             ZonedDevice, csd_mod, df_kernel, common, granite)
         data, launches, csd_count = phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod,
                                                   zf_kernel)
         on_array = phase_array(torch, tp, ZonedDevice, array_mod, csd_mod, trace, zf_kernel,
@@ -3326,8 +3613,12 @@ def main():
                        smi_line)
         phase_checkpoint(torch, ZonedDevice, train_mod, tree_mod, crash_mod, smi_line)
         counted = (zf_kernel.filtered_reduce, zf_kernel.filtered_reduce_batched,
-                   pa_kernel.paged_attention_kernel)
+                   pa_kernel.paged_attention_kernel, df_kernel.add_rmsnorm, df_kernel.rope_qk,
+                   df_kernel.swiglu)
         phase_model(torch, cfgs, models, api, serve_mod, tree_mod, counted, smi_line)
+        for kname, n in phase_zoned(torch, cfgs, models, serve_mod, df_kernel, pa_kernel,
+                                    smi_line).items():
+            launches[kname] = launches.get(kname, 0) + n
         train_out = phase_train(torch, cfgs, models, api, launch, step_mod, opt_mod,
                                 trainer_mod, train_mod, tree_mod, ZonedDevice, counted, smi_line)
         mesh_train_out = phase_mesh(torch, cfgs, models, api, serve_mod, step_mod, opt_mod,
@@ -3341,23 +3632,9 @@ def main():
     except PhaseFailed as e:
         emit("failed", error=str(e))
         return 1
-    zf_source = "src/repro_torch/kernels/zone_filter/csrc/zone_filter.cu"
-    table = []
-    for kname, source, replaces in (
-            ("filtered_reduce", zf_source, "src/repro/kernels/zone_filter/kernel.py:75"),
-            ("filtered_reduce_batched", zf_source,
-             "src/repro/kernels/zone_filter/kernel.py:147"),
-            ("paged_attention", "src/repro_torch/kernels/paged_attn/csrc/paged_attn.cu",
-             "src/repro/kernels/paged_attn/kernel.py:73")):
-        t = times[kname]
-        table.append({"name": kname, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": launches[kname],
-                      "max_abs_err": errs[kname], "ms": t["ms"], "plain_ms": t["plain_ms"],
-                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                      "library_ms": t["library_ms"]})
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi_line)
-    print(json.dumps({"kernels": table}))
+    print(json.dumps({"kernels": kernel_table(times, errs, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

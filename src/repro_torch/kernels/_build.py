@@ -17,8 +17,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Callable
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "load_library", "build_seconds"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "load_library", "load_in_background", "build_seconds"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -75,3 +76,13 @@ def load_library(source: Path) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path))
         _loaded[lib_path] = lib
         return lib
+
+
+def load_in_background(load: Callable[[], ctypes.CDLL], name: str) -> threading.Thread:
+    """Start a kernel package's ``load`` in a daemon thread named ``name``:
+    in a fresh checkout nvcc takes seconds, which then pass beside the
+    caller's own set-up. A later ``load`` waits for the build, or builds
+    again and raises if it failed."""
+    t = threading.Thread(target=load, name=name, daemon=True)
+    t.start()
+    return t

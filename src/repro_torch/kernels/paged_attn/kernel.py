@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -28,7 +27,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attn.ref import paged_attention_ref
 
 __all__ = ["paged_attention_kernel", "plan", "Plan", "smem_bytes", "load", "SOURCE",
-           "MAX_HEAD_DIM", "SMEM_LIMIT", "cta_shape", "load_in_background"]
+           "MAX_HEAD_DIM", "SMEM_LIMIT", "cta_shape"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attn.cu"
 MAX_HEAD_DIM = 256
@@ -129,15 +128,6 @@ def load() -> ctypes.CDLL:
     lib.pa_smem_bytes.argtypes = [ctypes.c_int] * 8
     lib.pa_smem_bytes.restype = ctypes.c_longlong
     return lib
-
-
-def load_in_background() -> threading.Thread:
-    """Start :func:`load` in a daemon thread: in a fresh checkout nvcc takes
-    seconds, which then pass beside the caller's own set-up. A later
-    ``load`` waits for the build, or builds again and raises if it failed."""
-    t = threading.Thread(target=load, name="paged_attn-load", daemon=True)
-    t.start()
-    return t
 
 
 def _check(q, k_zones, v_zones, zone_table, lengths) -> None:

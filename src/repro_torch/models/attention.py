@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import decode_fused
 from repro_torch.models.common import cdtype, rope, softcap
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamSpec
@@ -280,18 +281,20 @@ def zoned_decode_attention(
     x: torch.Tensor,               # [B, 1, d] current token
     zoned,                         # a step of a zoned cache (serve.kv_zones.ZoneStep)
     layer: int,
-    positions: torch.Tensor,       # [B] each row's absolute position
+    rot: tuple[torch.Tensor, torch.Tensor],   # the rows' RoPE cos, sin [B, hd/2]
 ) -> torch.Tensor:
-    """One decode step over a zoned cache: q, k and v at each row's own
-    position, the new K/V written to the rows' reserved slots of layer
-    ``layer`` (``zoned.write``), then paged attention over the rows' zones
+    """One decode step over a zoned cache: q, k and v, q and k rotated at
+    each row's own position in one call (``decode_fused.rope_qk`` over
+    ``rot``, ``decode_fused.rope_table`` of the rows' positions), the new
+    K/V written to the rows' reserved slots of layer ``layer``
+    (``zoned.write``), then paged attention over the rows' zones
     (``zoned.attend``). Returns y [B, 1, d]."""
     B = x.shape[0]
-    pos = positions[:, None]
-    q = _project_q(cfg, p, x, pos)                             # [B,1,H,hd]
-    k_new, v_new = _project_kv(cfg, p, x, pos)                 # [B,1,KV,hd]
-    zoned.write(layer, k_new[:, 0], v_new[:, 0])
-    o = zoned.attend(layer, q[:, 0])                           # [B,H,hd]
+    q = _project_q(cfg, p, x, None, use_rope=False)            # [B,1,H,hd]
+    k_new, v_new = _project_kv(cfg, p, x, None, use_rope=False)  # [B,1,KV,hd]
+    q, k_new = decode_fused.rope_qk(q[:, 0], k_new[:, 0], *rot)
+    zoned.write(layer, k_new, v_new[:, 0])
+    o = zoned.attend(layer, q)                                 # [B,H,hd]
     return _out_proj(cfg, p, o[:, None], B, 1)
 
 

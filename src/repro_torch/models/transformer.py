@@ -27,6 +27,7 @@ from typing import Any, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import decode_fused
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
@@ -306,23 +307,64 @@ def check_zoned(cfg: ModelConfig) -> None:
                          f"{ZONED_KINDS} without window or softcap, not {bad}")
 
 
+def _add_norm(cfg: ModelConfig, p: dict, x, r):
+    """(``x + r``, its norm); ``r`` None adds nothing. An RMS norm without
+    a bias is one fused call (``decode_fused.add_rmsnorm``), any other the
+    plain add and ``apply_norm``."""
+    if cfg.norm == "rms" and "bias" not in p:
+        return decode_fused.add_rmsnorm(x, r, p["scale"])
+    if r is not None:
+        x = x + r
+    return x, apply_norm(cfg, p, x)
+
+
+def _zoned_mlp(cfg: ModelConfig, p: dict, h):
+    """``apply_mlp``; the gated SiLU MLP's activation and product one fused
+    call (``decode_fused.swiglu``) between its products."""
+    if cfg.activation != "silu":
+        return apply_mlp(cfg, p, h)
+    dt = cdtype(cfg)
+    return decode_fused.swiglu(h @ p["gate"].to(dt), h @ p["up"].to(dt)) @ p["down"].to(dt)
+
+
+def _zoned_layer(cfg: ModelConfig, kind: str, p: dict, x, r, zoned, layer: int, rot):
+    """One layer of the zoned step (an attention kind of ``ZONED_KINDS``).
+    It takes its input as ``x + r`` (``r`` None: ``x``) and returns its
+    output the same way, leaving its last residual add to the next norm,
+    which fuses it. ``rot`` is the rows' RoPE cos and sin."""
+    x, h = _add_norm(cfg, p["ln1"], x, r)
+    a = attn.zoned_decode_attention(cfg, p["attn"], h, zoned, layer, rot)
+    if cfg.parallel_block:
+        if kind == "attn_moe":
+            m, _ = moe_mod.apply_moe(cfg, p["moe"], h)
+        else:
+            m = apply_mlp(cfg, p["mlp"], h)
+        return x + a, m
+    x, h2 = _add_norm(cfg, p["ln2"], x, a)
+    if kind == "attn_moe":
+        m, _ = moe_mod.apply_moe(cfg, p["moe"], h2)
+        return x, m
+    return x, _zoned_mlp(cfg, p["mlp"], h2)
+
+
 def _decode_zoned(cfg: ModelConfig, params: dict, zoned, tokens: torch.Tensor,
                   positions: torch.Tensor):
     """:func:`decode_step` over a zoned cache: layer ``l`` of the decoder
     (counted across segments) writes and attends through ``zoned`` as
-    layer ``l``."""
+    layer ``l``. The same sums as :func:`_decode_kind`'s, rounded alike; on
+    the card a layer's norms, RoPE and SiLU are four fused launches
+    (``kernels/decode_fused``)."""
     check_zoned(cfg)
     x = _embed_tokens(cfg, params, tokens)
-    layer = 0
+    rot = decode_fused.rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    r, layer = None, 0
     for seg, sp in zip(decoder_layout(cfg), params["segments"]):
         for layer_p in _layers(sp, seg.repeats):
             for j, kind in enumerate(seg.kinds):
-                p = layer_p[f"k{j}_{kind}"]
-                h = apply_norm(cfg, p["ln1"], x)
-                a = attn.zoned_decode_attention(cfg, p["attn"], h, zoned, layer, positions)
-                x = _attn_block_rest(cfg, kind, p, x, h, a)
+                x, r = _zoned_layer(cfg, kind, layer_p[f"k{j}_{kind}"], x, r, zoned,
+                                    layer, rot)
                 layer += 1
-    x = apply_norm(cfg, params["final_norm"], x)
+    _, x = _add_norm(cfg, params["final_norm"], x, r)
     return _lm_head(cfg, params, x)[:, 0, :]
 
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import host_tensor, host_to_device, resolve_device
+from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attn import kernel as paged_kernel
 from repro_torch.kernels.paged_attn.ops import paged_attention
 from repro_torch.telemetry import trace
@@ -198,15 +199,17 @@ class ZoneStep:
     """One decode step's rows in a :class:`KVZoneCache`: their new token's
     zone and slot, the step's zone table and lengths (the new token
     included) and each row's position (``lengths - 1``), all on the card:
-    int32 views of the cache's step buffer for ``B`` rows, copied into once
-    a step, so every step of ``B`` rows reads its tensors at one address (a
+    views of the cache's step buffer for ``B`` rows, copied into once a
+    step, so every step of ``B`` rows reads its tensors at one address (a
     captured decode replays over them) and holds until the next
     :meth:`KVZoneCache.reserve` of ``B`` rows. A model's decode writes and
-    attends through it, layer by layer."""
+    attends through it, layer by layer. Zones and slots are int64, the
+    index type of the layers' indexed writes; the rest int32, the paged
+    kernel's."""
 
     cache: "KVZoneCache"
-    zones: torch.Tensor          # [B]
-    slots: torch.Tensor          # [B]
+    zones: torch.Tensor          # [B] int64
+    slots: torch.Tensor          # [B] int64
     lengths: torch.Tensor        # [B]
     positions: torch.Tensor      # [B]
     table: torch.Tensor          # [B, max_zones_per_seq], -1 = unused
@@ -232,7 +235,7 @@ class KVZoneCache(_ZoneAllocator):
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
         self.device = resolve_device(device)
         if self.device.type == "cuda":      # its attends' kernel builds while the caller sets up
-            paged_kernel.load_in_background()
+            _build.load_in_background(paged_kernel.load, "paged_attn-load")
         shape = (num_layers, num_zones, zone_len, kv_heads, head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=dtype, device=self.device)
@@ -276,15 +279,18 @@ class KVZoneCache(_ZoneAllocator):
             states = [self._seqs[sid] for sid in seq_ids]
             B, MZ, ZL = len(states), self.max_zones_per_seq, self.zone_len
             self._check_room(states, [int(st.length % ZL == 0) for st in states])
-            buf = np.full(4 * B + B * MZ, -1, np.int32)
-            table = buf[4 * B:].reshape(B, MZ)
+            # int32 words: zones and slots as int64 (an indexed write casts
+            # an int32 index on every call), lengths, positions, the table
+            buf = np.full(6 * B + B * MZ, -1, np.int32)
+            index = buf[:4 * B].view(np.int64)
+            table = buf[6 * B:].reshape(B, MZ)
             for i, st in enumerate(states):
                 slot = st.length % ZL
                 if slot == 0:
                     self._alloc_zone(st)
                 st.length += 1
-                buf[i], buf[B + i] = st.zones[-1], slot
-                buf[2 * B + i], buf[3 * B + i] = st.length, st.length - 1
+                index[i], index[B + i] = st.zones[-1], slot
+                buf[4 * B + i], buf[5 * B + i] = st.length, st.length - 1
                 table[i, :len(st.zones)] = st.zones
             self._c_tokens.inc(B)
             dev = self._step_bufs.get(B)
@@ -292,8 +298,9 @@ class KVZoneCache(_ZoneAllocator):
                 dev = self._step_bufs[B] = torch.empty(buf.shape, dtype=torch.int32,
                                                        device=self.device)
             dev.copy_(host_tensor(buf))
-            return ZoneStep(self, dev[:B], dev[B:2 * B], dev[2 * B:3 * B],
-                            dev[3 * B:4 * B], dev[4 * B:].view(B, MZ))
+            dev_index = dev[:4 * B].view(torch.int64)
+            return ZoneStep(self, dev_index[:B], dev_index[B:], dev[4 * B:5 * B],
+                            dev[5 * B:6 * B], dev[6 * B:].view(B, MZ))
 
     def write(self, layer: int, slots: tuple[torch.Tensor, torch.Tensor],
               k_new: torch.Tensor, v_new: torch.Tensor) -> None:

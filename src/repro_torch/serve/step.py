@@ -12,6 +12,8 @@ import torch
 from torch import nn
 
 from repro_torch._device import resolve_device
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_fused import kernel as decode_fused
 from repro_torch.kernels.paged_attn.kernel import paged_attention_kernel
 from repro_torch.models import cache_specs, decode_step, forward, init_params
 from repro_torch.models.config import ModelConfig
@@ -120,6 +122,8 @@ class ServeModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
+        if self.device.type == "cuda":      # the zoned step's kernels build beside the set-up
+            _build.load_in_background(decode_fused.load, "decode_fused-load")
         self.params = _as_module(_tree.tree_map(lambda t: t.to(self.device), params))
         self._prefill = make_prefill_step(cfg)
         self._serve = make_serve_step(cfg)
@@ -199,8 +203,8 @@ class ServeModel(nn.Module):
         (:class:`ZonedStepGraph`), captured at the first step of ``B`` rows
         over ``cache`` and replayed at every later one: its shapes and
         addresses do not change from step to step, and an eager step
-        spends most of its time launching about 2,500 kernels from the
-        host. The logits are the graph's output buffer, valid until the
+        spends most of its time launching its hundreds of kernels from
+        the host. The logits are the graph's output buffer, valid until the
         next step."""
         if not trace.enabled():
             return self._decode_sessions(cache, seq_ids, tokens, evict, admit)
@@ -226,6 +230,11 @@ class ServeModel(nn.Module):
         return nxt, logits
 
 
+# the wrappers whose launches a zoned step's graph counts on every replay
+COUNTED = (paged_attention_kernel, decode_fused.add_rmsnorm, decode_fused.rope_qk,
+           decode_fused.swiglu)
+
+
 class ZonedStepGraph:
     """A zoned decode step (``decode_step`` over a ``KVZoneCache`` step of
     ``B`` rows) captured as one CUDA graph. Its inputs are the cache's step
@@ -234,7 +243,9 @@ class ZonedStepGraph:
     capture follows one eager run of the step on a side stream (it warms the
     allocator and writes the step's K/V, which the replay writes again, the
     same bytes). It holds the cache, so the zones it writes outlive it; a
-    replay counts the paged kernel's launches it makes."""
+    replay counts the launches it makes on each wrapper of ``COUNTED`` (the
+    paged kernel and the fused elementwise kernels): ``launches`` maps each
+    to its launches a replay."""
 
     def __init__(self, model: "ServeModel", cache, step, tokens: torch.Tensor):
         self.cache, self.step = cache, step
@@ -246,12 +257,13 @@ class ZonedStepGraph:
         with torch.cuda.stream(side):
             decode_step(model.cfg, tree, step, self.tokens, step.positions)
         main.wait_stream(side)
-        before = paged_attention_kernel.launches
+        before = [w.launches for w in COUNTED]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.logits, _ = decode_step(model.cfg, tree, step, self.tokens, step.positions)
-        self.launches = paged_attention_kernel.launches - before
-        paged_attention_kernel.launches = before     # counted as they replay
+        self.launches = {w: w.launches - n for w, n in zip(COUNTED, before)}
+        for w, n in zip(COUNTED, before):
+            w.launches = n                  # counted as they replay
 
     def serves(self, cache, step) -> bool:
         """Whether ``step`` of ``cache`` is at this graph's addresses."""
@@ -261,5 +273,6 @@ class ZonedStepGraph:
     def replay(self, tokens: torch.Tensor) -> torch.Tensor:
         self.tokens.copy_(tokens)
         self.graph.replay()
-        paged_attention_kernel.launches += self.launches
+        for w, n in self.launches.items():
+            w.launches += n
         return self.logits

@@ -97,11 +97,12 @@ def test_a_step_s_tensors_are_one_copy_into_one_buffer(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "copy_",
                         lambda t, src, *a, **kw: copies.append(t.shape) or real(t, src, *a, **kw))
     step = c.reserve([5, 4])
-    assert copies == [(4 * 2 + 2 * 4,)]
+    assert copies == [(6 * 2 + 2 * 4,)]        # int64 zones and slots: 2 words a row each
     assert step.lengths.tolist() == [7, 5] and step.positions.tolist() == [6, 4]
     assert step.zones.tolist() == [c._seqs[5].zones[-1], c._seqs[4].zones[-1]]
     assert step.slots.tolist() == [2, 0]
     assert step.table.dtype == step.lengths.dtype == torch.int32
+    assert step.zones.dtype == step.slots.dtype == torch.int64
     assert step.table.shape == (2, 4) and step.table.is_contiguous()
     assert step.table[1].tolist() == c._seqs[4].zones + [-1] * (4 - len(c._seqs[4].zones))
     again = c.reserve([5, 4])                      # the next step: the same addresses
