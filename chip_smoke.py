@@ -8,46 +8,19 @@ Phases, one JSON line each; any failed phase exits non-zero:
   device    the card's name, compute capability (must be 9.0) and power limit
   build     nvcc of every kernel source, all started together (seconds, or
             "cached"), with registers and spills for each source
-  kernels   every kernel held against its plain PyTorch version on the card.
-            zone_filter: every (dtype, kind), the reference tests' programs
-            and the edge programs, at 64 and 65,536 pages; batched rows
-            against single launches. Exact for counts, integers, min and max;
-            float sums within rtol 1e-5 of the sum of the magnitudes they add.
-            Batched rows at 8 x 2,048 pages (float sums within rtol 1e-5
-            of each row's sum) and at the array's 512 x 64 (of each row's
-            summed magnitudes: a 65,536-value row of mixed signs may sum
-            near zero). Float sums bit for bit at the 256 KiB chunk and the
-            256 MiB zone, bare and through a program: a single launch, a
-            batched row, repeats and two streams at once, one launch a
-            wrapper call; rows of the array's 512 x 64 dispatch (4 fold
-            blocks a CUDA block) against each chunk alone; planted faults
-            must fail that check: a stale ticket (no block folds) and a
-            ticket one short of the block count (the first block to arrive
-            folds before the other partials are in: a finite wrong sum).
-            NvmCsd's kernel tier over mapped zone memory as the extents
-            cell runs it: zones of int32, uint32 and float32, every extent
-            of 1-26 blocks at block 0, the zone's end and 2 seeded starts,
-            each read in place (counted in csd.in_place, none copied) with
-            its result in a mapped slot, one launch a command, against the
-            plain version over the same pages (as above)
-            paged_attn: the reference tests' geometries, every attention
-            geometry of src/repro/configs, one geometry of several splits
-            and the granite-8b pool, in float32 and bfloat16 (within
-            PAGED_TOL), each at kernel.py::plan's split and at one split a
-            row, on random tables with -1 tails, ragged and full lengths, a
-            length-0 row, an all -1 row, a -1 hole, and rows at the
-            kernel's split boundaries; each plan's shared memory against
-            the kernel's own.
-            decode_fused: add_rmsnorm, rope_qk and swiglu at the
-            kvzone-granite.decode cell's shapes (64 rows, d 4,096, H/KV/hd
-            32/8/128, d_ff 14,336, positions 0-4,095), bf16 and float32,
-            against the model's plain functions (the add and apply_norm,
-            rope, silu(gate) * up): rope_qk and swiglu bit for bit,
-            add_rmsnorm's sum bit for bit and its norm within one bf16
-            step (float32: a relative 1e-6), one launch a call
+  kernels   every kernel held against its plain PyTorch version on the card:
+            the cuda-marked cases of CARD_TESTS (the zone filter, the paged
+            kernel, the fused elementwise kernels, the zoned step's graph,
+            NvmCsd's in-place extents) in one pytest process, each file's
+            docstring saying what it holds. Any failure, error or skip fails
+            the phase; its line has the cases a file, the comparisons they
+            make, each kernel's max_abs_err, and every value the cases
+            record (the paged kernel's error and share of its limit a dtype)
   offload   the paper's Figure 2 offload through NvmCsd: one 256 MiB zone of
-            random int32, count > RAND_MAX/2, on the kernel and jit tiers
-            (interp on a 4 MiB zone); launch counts read around the run
+            random int32, count > RAND_MAX/2, a cold and a warm run on the
+            kernel and jit tiers (interp on a 4 MiB zone), each against
+            numpy's count; launches and copies counted around the runs. Its
+            times are the fig2-nvm.scan cell's (zcsd_bench)
   array     the same zone striped over a StripedZoneArray and offloaded
             through OffloadScheduler on the kernel tier: raid0 at widths 1,
             2, 4 and 8, and xor at width 4 with member 1 offline (its chunks
@@ -166,8 +139,10 @@ Phases, one JSON line each; any failed phase exits non-zero:
             instance it runs; the fused rows at the cell's shapes in bf16
             beside the plain functions' time and launches and a library
             yardstick (F.rms_norm, F.silu; none for RoPE). It runs right
-            after the build: torch.profiler sees every kernel early in a
-            process, not late (profiled_ms)
+            after the build, before the kernels phase: torch.profiler sees
+            every kernel early in a process, not late (profiled_ms). The
+            kernel table takes its times from here, its max_abs_err from the
+            kernels phase and its launches from the phases that count them
 
 Then the ``nvidia-smi`` line, the kernel table as one JSON object, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -188,16 +163,20 @@ from pathlib import Path
 
 import numpy as np
 
+from zcsd_bench.bound import HBM_BYTES_PER_S, VECTOR_OPS_PER_S
+
 ROOT = Path(__file__).resolve().parent
 RAND_MAX = 2**31 - 1
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, 700 W (NVIDIA data sheet)
-VECTOR_OPS_PER_S = 67e12       # H100 SXM non-tensor float32 rate, used for ALU ops
 PAGE_BYTES = 4096
 DEVICE = "cuda"
-CHECK_PAGES = (64, 65536)       # kernel checks: a small zone and a 256 MiB one
-IN_PLACE_ZONE_BLOCKS = 2048     # the in-place checks' 8 MiB zones
-IN_PLACE_BLOCKS = range(1, 27)  # YCSB E's scans of 1-100 1 KB records (the extents cell)
-BATCH_SHAPES = ((8, 2048), (512, 64))   # chunks x pages: 8 chunks, the array's dispatch
+# the kernels phase: every cuda-marked case of these files, one pytest process
+CARD_TESTS = ("tests/test_torch_zone_filter_card.py", "tests/test_torch_paged_attn_card.py",
+              "tests/test_torch_decode_fused_card.py", "tests/test_torch_zoned_decode_card.py",
+              "tests/test_torch_staging.py")
+KERNELS = ("filtered_reduce", "filtered_reduce_batched", "paged_attention", "add_rmsnorm",
+           "rope_qk", "swiglu")
+OFFLOAD_RUNS = 2                # the offload phase's runs a tier: a cold one, then a warm one
+DISPATCH_SHAPE = (512, 64)      # chunks x pages of one array dispatch
 ZONE_BYTES = 256 * 1024 * 1024  # the Figure 2 zone
 INTERP_ZONE_BYTES = 4 * 1024 * 1024
 ARRAY_STRIPE = 64               # blocks a chunk: 256 KiB (benchmarks/bench_array.py:42)
@@ -206,21 +185,6 @@ ARRAY_RUNS = (("raid0", 1, None), ("raid0", 2, None), ("raid0", 4, None),
               ("raid0", 8, None), ("xor", 4, 1))
 ARRAY_TAIL_BLOCKS = 32          # a partial extent ends this far before the zone's end
 
-# Attention geometries (H, KV, hd) of every attention model in
-# src/repro/configs: granite-8b and llama-3.2-vision-11b, starcoder2-3b,
-# h2o-danube-1.8b, recurrentgemma-9b, seamless-m4t-large-v2,
-# command-r-plus-104b, deepseek-moe-16b, grok-1-314b.
-CONFIG_GEOMETRIES = ((32, 8, 128), (24, 2, 128), (32, 8, 80), (16, 1, 256),
-                     (16, 16, 64), (96, 8, 128), (16, 16, 128), (48, 8, 128))
-# (B, H, KV, hd, NZ, ZL, MZ) of tests/test_kernels.py:145-149
-TEST_GEOMETRIES = ((1, 4, 4, 32, 4, 16, 2), (2, 8, 2, 64, 8, 32, 3),
-                   (4, 8, 1, 128, 16, 128, 4))
-# every geometry above is one split of the kernel (kernel.py::plan: a split
-# holds at least 256 slots); this one has three at a small ZL (16 zones a
-# split), so the small head widths and the edge rows reach the combine as
-# the granite pool's do
-SPLIT_GEOMETRY = (8, 8, 2, 64, 64, 16, 48)
-EDGE_ROWS = 8                   # paged_tables(edges=True) sets rows 0..7
 # granite-8b (src/repro/configs/granite_8b.py) in its compute dtype, bf16:
 # one layer's pool for 64 sequences at a 4K context, with spare zones
 GRANITE = dict(num_zones=4096, zone_len=128, kv_heads=8, head_dim=128,
@@ -230,7 +194,6 @@ GRANITE_HEADS = 32
 # kvzone-granite.decode cell's shapes: granite-8b's widths, 64 rows a step
 # at ragged positions 0..4,095
 FUSED_SHAPE = dict(B=64, d=4096, H=32, KV=8, hd=128, d_ff=14336)
-FUSED_TOP_POS = 4095
 # the zoned phase: granite-8b at its published widths and depth in bf16
 # served from a KVZoneCache by ServeModel.decode_sessions (one CUDA graph a
 # step), the cell's path: ZONED_ROWS sessions of ragged prompts in
@@ -244,12 +207,6 @@ ZONED_PROMPT = (16, 500)
 ZONED_POOL = dict(num_zones=320, zone_len=128, max_zones_per_seq=8)
 ZONED_INIT_STD, ZONED_SCALE_STD = 0.02, 0.1
 ZONED_LIMITS = dict(logit_gap=1.0, lse_gap=0.012)
-# (atol, rtol) of the paged_attn checks: |kernel - ref.py| <= atol + rtol *
-# |ref.py| everywhere. Both compute in float32 from the same inputs, so in
-# float32 they differ by the order of the sums (3.6e-6 at most on an H100),
-# and in bfloat16 the two float32 results may also round to neighbouring
-# bfloat16 values, one step apart: at most 2**-7 of the value.
-PAGED_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-5, 2**-7)}
 # the pipeline phase's corpus: zones x 256 MiB of records [quality | 2,048
 # tokens | padding to 3 pages], tokens in granite-8b's vocabulary
 PIPE_ZONES = 4
@@ -416,117 +373,6 @@ def check(cond, msg):
         raise PhaseFailed(msg)
 
 
-# --------------------------------------------------------------- programs
-
-def programs(tp):
-    """(name, dtype, port Program) for the kernel checks: one per
-    kernelizable (dtype, kind), tests/test_kernels.py:77-88,
-    tests/test_hotpath.py:260-269 and the edge programs."""
-    i32 = np.iinfo(np.int32)
-
-    def P(name, dtype, *insns):
-        return name, dtype, tp.Program(dtype, tuple(
-            tp.Instruction(tp.OpCode(op), imm) for op, imm in insns), name=name)
-
-    out = []
-    for dtype in ("int32", "int64", "uint32", "float32", "float64"):
-        thr = 0.5 if dtype.startswith("float") else 1000
-        for kind in ("count", "sum", "min", "max"):
-            if kind == "sum" and not dtype.startswith("float"):
-                continue                    # int SUM goes to the jit tier
-            out.append(P(f"{dtype}_gt_{kind}", dtype, ("cmp_gt", thr), (f"red_{kind}", None)))
-    out += [
-        P("fig2_count", "int32", ("cmp_gt", RAND_MAX // 2), ("red_count", None)),
-        P("f32_le_count", "float32", ("cmp_le", 0.0), ("red_count", None)),
-        P("mask_eq", "int32", ("and", 0xFF), ("cmp_eq", 7), ("red_count", None)),
-        P("scaled_sum", "float32", ("mul", 2.0), ("cmp_ge", 10.0), ("red_sum", None)),
-        P("abs_max", "int32", ("abs", None), ("red_max", None)),
-        P("shift_min", "int32", ("shr", 3), ("cmp_gt", 1000), ("red_min", None)),
-        P("lt_min", "int32", ("cmp_lt", 500), ("red_min", None)),
-        P("mod_neg_divisor_min", "int32", ("mod", -3), ("red_min", None)),
-        P("mod_on_negatives", "int32", ("cmp_lt", 0), ("mod", 7), ("cmp_eq", 6),
-          ("red_count", None)),
-        P("mod_minus_one", "int32", ("mod", -1), ("red_max", None)),
-        P("mod_float", "float32", ("mod", -2.5), ("red_max", None)),
-        P("shl33", "int32", ("shl", 33), ("red_max", None)),
-        P("shl_wrap", "int32", ("shl", 31), ("red_min", None)),
-        P("shr40_sign_fill", "int32", ("shr", 40), ("red_min", None)),
-        P("abs_int_min", "int32", ("abs", None), ("red_min", None)),
-        P("add_mul_wrap", "int32", ("add", i32.max), ("mul", 3), ("sub", -5),
-          ("xor", 0x55), ("or", 1), ("red_max", None)),
-        P("u32_max", "uint32", ("red_max", None)),
-        P("u32_add_wrap", "uint32", ("add", 0xF0000000), ("cmp_gt", 2**31),
-          ("red_count", None)),
-        P("u32_mul_neg", "uint32", ("mul", 3), ("neg", None), ("red_max", None)),
-        P("u32_shr_logical", "uint32", ("shr", 40), ("red_max", None)),
-        P("u32_shr_mod", "uint32", ("shr", 3), ("mod", 1000), ("cmp_ne", 0),
-          ("red_min", None)),
-        P("i64_count", "int64", ("mul", 3), ("shr", 7), ("cmp_gt", 0), ("red_count", None)),
-        P("i64_min", "int64", ("shl", 63), ("add", 2**40), ("red_min", None)),
-        P("i64_max", "int64", ("abs", None), ("mod", -(2**50)), ("red_max", None)),
-        P("f64_sum", "float64", ("cmp_gt", 0.0), ("red_sum", None)),
-        P("f64_min", "float64", ("mul", 1e300), ("red_min", None)),
-        P("f64_max", "float64", ("abs", None), ("neg", None), ("mod", 3.5), ("red_max", None)),
-        P("f32_sum_all", "float32", ("red_sum", None)),
-        P("empty_min_i32", "int32", ("cmp_gt", i32.max - 1), ("cmp_lt", 0), ("red_min", None)),
-        P("empty_max_f32", "float32", ("cmp_gt", 1e30), ("red_max", None)),
-        P("empty_min_f64", "float64", ("cmp_lt", -1e300), ("red_min", None)),
-        P("empty_max_u32", "uint32", ("cmp_eq", 3), ("cmp_eq", 4), ("red_max", None)),
-        P("empty_min_i64", "int64", ("cmp_ne", 0), ("cmp_eq", 0), ("red_min", None)),
-    ]
-    return out
-
-
-def card_pages(torch, dtype, n_pages, seed):
-    """Seeded pages made on the card: random bits for integer types (with
-    INT_MIN, the maximum, 0 and small values up front), normal * 100 for
-    floats (with 0 and +-0.5, +-7.25 up front)."""
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    tdt = getattr(torch, dtype)
-    elems = n_pages * PAGE_BYTES // torch.empty(0, dtype=tdt).element_size()
-    if tdt.is_floating_point:
-        x = torch.randn(elems, generator=g, device=DEVICE, dtype=tdt) * 100
-        x[:4] = torch.tensor([0.0, -0.5, 7.25, -7.25], dtype=tdt)
-    else:
-        words = torch.randint(-2**31, 2**31 - 1, (elems * (8 if dtype == "int64" else 4) // 4,),
-                              generator=g, device=DEVICE, dtype=torch.int32)
-        x = words.view(tdt)
-        if dtype == "uint32":
-            small = torch.randint(0, 100, (1020,), generator=g, device=DEVICE,
-                                  dtype=torch.int32).view(tdt)
-            x[:1020] = small
-        else:
-            info = torch.iinfo(tdt)
-            x[:3] = torch.tensor([info.min, info.max, 0], dtype=tdt)
-            x[3:1024] = torch.randint(-50, 50, (1021,), generator=g, device=DEVICE, dtype=tdt)
-    return x.reshape(n_pages, -1)
-
-
-def as_f64(torch, t):
-    if t.dtype == torch.uint32:
-        return t.view(torch.int32).to(torch.int64).bitwise_and(0xFFFFFFFF).to(torch.float64)
-    return t.to(torch.float64)
-
-
-def compare(torch, got, want, float_sum, magnitude=None):
-    """(ok, max_abs_err). Exact unless ``float_sum``; then within 1e-5 of
-    the summed magnitudes (rtol 1e-5 for sums of one sign)."""
-    if got.dtype != want.dtype:
-        return False, float("inf")
-    g, w = as_f64(torch, got), as_f64(torch, want)
-    if got.is_floating_point():
-        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
-    else:       # integers compared bit for bit (uint32 through its int32 view)
-        bits = (lambda t: t.view(torch.int32)) if got.dtype == torch.uint32 else (lambda t: t)
-        same = bits(got) == bits(want)
-    err = torch.where(same, torch.zeros_like(g), (g - w).abs())
-    max_err = float(err.max()) if err.numel() else 0.0
-    if not float_sum:
-        return bool(same.all()), max_err
-    scale = w.abs() if magnitude is None else torch.maximum(w.abs(), magnitude)
-    return bool((err <= 1e-5 * scale).all()), max_err
-
-
 # ----------------------------------------------------------------- timing
 
 def cuda_ms(torch, fn, reps=20, warmup=3):
@@ -543,6 +389,8 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
 
 
 def bound_ms(n_bytes, n_ops):
+    """(the least ms of the work, "bytes" or "operations"), at
+    zcsd_bench/bound.py's rates."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / VECTOR_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -618,485 +466,59 @@ def phase_build(kernel_modules, _build):
     return sources
 
 
-def phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref, NvmCsd,
-                  ZonedDevice, csd_mod, df_kernel, common, cfg):
-    """Each kernel against its plain version; returns max_abs_err per kernel."""
-    errs = {"filtered_reduce": 0.0, "filtered_reduce_batched": 0.0}
-    failures, n_checks = [], 0
-    cases = programs(tp)
-    for n_pages in CHECK_PAGES:
-        data = {d: card_pages(torch, d, n_pages, seed=n_pages + i) for i, d in
-                enumerate(("int32", "int64", "uint32", "float32", "float64"))}
-        # the bare kernel, every (dtype, kind) including integer sums
-        for dtype, x in data.items():
-            for kind in ("count", "sum", "min", "max"):
-                got = zf_kernel.filtered_reduce(x, kind=kind)
-                want = zf_ref.filtered_reduce_ref(x, kind)
-                mag = as_f64(torch, x).abs().sum() if kind == "sum" else None
-                ok, err = compare(torch, got, want, kind == "sum" and x.is_floating_point(), mag)
-                errs["filtered_reduce"] = max(errs["filtered_reduce"], err)
-                n_checks += 1
-                if not ok:
-                    failures.append(f"bare {dtype}/{kind}@{n_pages}: {got} vs {want}")
-        for name, dtype, prog in cases:
-            x = data[dtype]
-            ops, imms = zf_ops.encode_program(prog, DEVICE)
-            kind = zf_ops.TERM_KIND[prog.terminal.op]
-            got = zf_kernel.filtered_reduce(x, kind=kind, ops=ops, imms=imms)
-            transform = zf_ref.decode_transform(ops, imms, u32=dtype == "uint32")
-            want = zf_ref.filtered_reduce_ref(x, kind, transform)
-            float_sum = kind == "sum"
-            mag = None
-            if float_sum:
-                vals, mask = transform(x.reshape(1, -1))
-                mag = torch.where(mask, vals, 0).to(torch.float32).to(torch.float64).abs().sum()
-            ok, err = compare(torch, got, want, float_sum, mag)
-            errs["filtered_reduce"] = max(errs["filtered_reduce"], err)
-            n_checks += 1
-            if not ok:
-                failures.append(f"{name}@{n_pages}: {got} vs {want}")
-        del data
-    # batched: each row equal to the single launch
-    for i, ((name, dtype, prog), shape) in enumerate(
-            (case, shape) for shape in BATCH_SHAPES for case in cases):
-        x = card_pages(torch, dtype, shape[0] * shape[1], seed=100 + i).reshape(*shape, -1)
-        ops, imms = zf_ops.encode_program(prog, DEVICE)
-        kind = zf_ops.TERM_KIND[prog.terminal.op]
-        rows = zf_kernel.filtered_reduce_batched(x, kind=kind, ops=ops, imms=imms)
-        single = torch.stack([zf_kernel.filtered_reduce(c, kind=kind, ops=ops, imms=imms)
-                              for c in x])
-        transform = zf_ref.decode_transform(ops, imms, u32=dtype == "uint32")
-        want = zf_ref.filtered_reduce_batched_ref(x, kind, transform)
-        n_checks += 2
-        same, _ = compare(torch, rows, single, False)
-        if not same:
-            failures.append(f"batched {name}@{shape}: rows {rows} vs single {single}")
-        mag = None
-        if kind == "sum" and shape == BATCH_SHAPES[0]:
-            mag = as_f64(torch, want).abs()
-        elif kind == "sum":     # each row's summed magnitudes, as the single checks
-            vals, mask = transform(x.reshape(shape[0], -1))
-            mag = torch.where(mask, vals, 0).to(torch.float32).to(torch.float64).abs().sum(1)
-        ok, err = compare(torch, rows, want, kind == "sum", mag)
-        errs["filtered_reduce_batched"] = max(errs["filtered_reduce_batched"], err)
-        if not ok:
-            failures.append(f"batched {name}@{shape} vs plain: {rows} vs {want}")
-    identity = zone_filter_identity(torch, tp, zf_kernel, zf_ops, failures)
-    n_checks += identity["checks"]
-    in_place = in_place_checks(torch, tp, zf_kernel, zf_ops, zf_ref, NvmCsd, ZonedDevice,
-                               csd_mod, failures)
-    n_checks += in_place["commands"]
-    errs["filtered_reduce"] = max(errs["filtered_reduce"], in_place["max_abs_err"])
-    paged_errs, paged_shares, paged_checks = paged_attention_checks(
-        torch, pa_kernel, pa_ref, failures)
-    errs["paged_attention"] = max(paged_errs.values())
-    n_checks += paged_checks
-    fused_errs, fused_n = fused_checks(torch, df_kernel, common, cfg, failures)
-    errs.update(fused_errs)
-    n_checks += fused_n
-    torch.cuda.synchronize()
-    emit("kernels", checks=n_checks, zone_filter_bit_identity=identity,
-         zone_filter_in_place=in_place,
-         paged_attention_checks=paged_checks,
-         paged_attention_max_abs_err=paged_errs,
-         paged_attention_share_of_limit=paged_shares, decode_fused_checks=fused_n,
-         failures=failures[:10],
-         n_failures=len(failures), max_abs_err=errs)
-    check(not failures, f"{len(failures)} kernel checks disagree with the plain version")
+def phase_kernels():
+    """The cuda-marked cases of CARD_TESTS in one pytest process, each
+    kernel against its plain version (the card files say what each holds).
+    Any failure, error or skip fails the phase. Returns {kernel: max_abs_err}
+    from the cases' recorded ``max_abs_err.<kernel>[.<detail>]`` properties;
+    ``checks`` is the comparisons the cases make (a case records ``checks``
+    where it makes more than one)."""
+    import xml.etree.ElementTree as ET
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, (str(ROOT / "src"), os.environ.get("PYTHONPATH")))))
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = Path(tmp) / "card_tests.xml"
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", "-q", "-m", "cuda", f"--junitxml={xml}",
+             "-o", "junit_family=xunit1", *CARD_TESTS],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=1800)
+        cases = list(ET.parse(xml).getroot().iter("testcase")) if xml.exists() else []
+    files, props, not_passed, checks = {}, {}, [], 0
+    for case in cases:
+        name = f"{case.get('classname')}::{case.get('name')}"
+        files[case.get("classname")] = files.get(case.get("classname"), 0) + 1
+        if any(child.tag in ("failure", "error", "skipped") for child in case):
+            not_passed.append(name)
+        recorded = {p.get("name"): float(p.get("value")) for p in case.iter("property")}
+        checks += int(recorded.pop("checks", 1))
+        for key, value in recorded.items():
+            props[key] = max(props.get(key, value), value)
+    errs = {}
+    for key, value in props.items():
+        if key.startswith("max_abs_err."):
+            kname = key.split(".")[1]
+            errs[kname] = max(errs.get(kname, value), value)
+    emit("kernels", pytest_rc=proc.returncode, cases=len(cases), cases_by_file=files,
+         checks=checks, max_abs_err=errs, recorded=props, not_passed=not_passed[:10], n_not_passed=len(not_passed),
+         seconds=time.perf_counter() - t0,
+         pytest_tail=None if proc.returncode == 0 else proc.stdout[-3000:] + proc.stderr[-2000:])
+    check(proc.returncode == 0 and cases and not not_passed,
+          f"card tests: rc {proc.returncode}, {len(not_passed)} of {len(cases)} cases "
+          "failed, errored or skipped")
+    missing = [k for k in KERNELS if k not in errs]
+    check(not missing, f"no card test recorded max_abs_err for {missing}")
     return errs
 
 
-def in_place_checks(torch, tp, zf_kernel, zf_ops, zf_ref, NvmCsd, ZonedDevice, csd_mod,
-                    failures):
-    """NvmCsd's kernel tier over small extents of mapped zone memory: each
-    read in place and its result written to a mapped slot
-    (core/csd.py::reads_in_place, kernel.py::filtered_reduce_to_slot),
-    held against ref.py's plain version over the same pages on the card.
-    Failures go to ``failures``; returns the counts and the largest error."""
-    rng = np.random.default_rng(27)
-    n_elems = IN_PLACE_ZONE_BLOCKS * PAGE_BYTES // 4
-    zones = (rng.integers(0, RAND_MAX, n_elems, dtype=np.int32),
-             rng.integers(0, 2**32, n_elems, dtype=np.uint32),
-             (rng.standard_normal(n_elems) * 100).astype(np.float32))
-    progs = (tp.filter_count("int32", "gt", RAND_MAX // 2),
-             tp.Program("uint32", (tp.Instruction(tp.OpCode.CMP_LT, 3_000_000_000),
-                                   tp.Instruction(tp.OpCode.RED_MAX)), name="u32_lt_max"),
-             tp.filter_sum("float32", "gt", 0.0))
-    dev = ZonedDevice(num_zones=len(zones), zone_bytes=IN_PLACE_ZONE_BLOCKS * PAGE_BYTES,
-                      block_bytes=PAGE_BYTES)
-    for z, vals in enumerate(zones):
-        dev.zone_append(z, vals)
-    csd = NvmCsd(dev, device=DEVICE, default_tier="kernel")
-    extents = []
-    for n in IN_PLACE_BLOCKS:
-        last = IN_PLACE_ZONE_BLOCKS - n
-        extents += [(0, n), (last, n), *((int(o), n) for o in rng.integers(0, last + 1, 2))]
-    zf_kernel.filtered_reduce.launches = 0
-    before = csd_mod.in_place.snapshot()[0], csd_mod.h2d.snapshot()[0]
-    n_cmds, max_err = 0, 0.0
-    for z, (vals, prog) in enumerate(zip(zones, progs)):
-        ops, imms = zf_ops.encode_program(prog, DEVICE)
-        kind = zf_ops.TERM_KIND[prog.terminal.op]
-        transform = zf_ref.decode_transform(ops, imms, u32=vals.dtype == np.uint32)
-        for off, n in extents:
-            value, stats = csd.run_and_fetch(prog, z, block_off=off, n_blocks=n)
-            n_cmds += 1
-            x = torch.from_numpy(dev.read_extent(z, off, n, vals.dtype.name)
-                                 .reshape(n, -1).copy()).to(DEVICE)
-            want = zf_ref.filtered_reduce_ref(x, kind, transform)
-            got = torch.from_numpy(np.array(value)).to(DEVICE)
-            mag = None
-            if kind == "sum":
-                t, mask = transform(x.reshape(1, -1))
-                mag = torch.where(mask, t, 0).to(torch.float32).to(torch.float64).abs().sum()
-            ok, err = compare(torch, got, want, kind == "sum", mag)
-            max_err = max(max_err, err)
-            if not ok or stats.tier != "kernel":
-                failures.append(f"in place {prog.name} zone {z} blocks {off}+{n} on "
-                                f"{stats.tier}: {value} vs {want}")
-    moved = csd_mod.in_place.snapshot()[0] - before[0], csd_mod.h2d.snapshot()[0] - before[1]
-    launches = zf_kernel.filtered_reduce.launches
-    if moved != (n_cmds, 0) or launches != n_cmds:
-        failures.append(f"in place: {moved[0]} read in place, {moved[1]} copied, "
-                        f"{launches} launches for {n_cmds} commands")
-    csd_mod.unpin_zone_memory(dev)
-    return dict(commands=n_cmds, in_place=moved[0], copied=moved[1], launches=launches,
-                blocks=[IN_PLACE_BLOCKS[0], IN_PLACE_BLOCKS[-1]], max_abs_err=max_err)
-
-
-def same_bits(torch, a, b):
-    """Whether two float32 results are the same bits."""
-    return torch.equal(a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32))
-
-
-def raw_filtered_reduce(torch, zf_kernel, x, ops, imms, bpc, ticket, partials):
-    """One launch of ``zone_filter.cu`` over the float32 zone ``x`` (kind
-    sum) through its C entry, with the partials ``partials`` (``bpc`` int64
-    slots) and a ticket of its own that starts at ``ticket``; the result
-    starts as NaN. Only the planted faults use it."""
-    tickets = torch.full((1,), ticket, dtype=torch.int32, device=DEVICE)
-    out = torch.full((), float("nan"), dtype=torch.float32, device=DEVICE)
-    n = 0 if ops is None else ops.numel()
-    err = zf_kernel.load().zf_filtered_reduce(
-        3, 1, x.data_ptr(), 1, x.numel(), 0 if ops is None else ops.data_ptr(),
-        0 if ops is None else imms.data_ptr(), n, partials.data_ptr(), tickets.data_ptr(),
-        bpc, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"planted launch failed: cudaError {err}")
-    return out
-
-
-def zone_filter_identity(torch, tp, zf_kernel, zf_ops, failures):
-    """Float sums of ``zone_filter.cu`` bit for bit, at the 256 KiB chunk
-    and the 256 MiB zone, bare and through a program: a single launch, the
-    same chunk as a row of a batched launch of two, repeated calls (each
-    leaves its tickets at 0 for the next) and the chunk on two streams at
-    once (held back behind a sleep on each stream, so that their launches
-    overlap on the card); then rows of a batched launch at the array's
-    dispatch shape, 512 chunks of 64 pages, where a CUDA block runs 4 fold
-    blocks (bpc 32 one-tile fold blocks a chunk and 512 chunks:
-    zone_filter.cu::launch groups them by 4), each against its chunk
-    alone. Every wrapper call must be one launch. Then, after the counted
-    calls, planted faults that the bit check must reject, each one launch
-    through the C entry: a ticket left at the block count, as a launch
-    without the reset would leave it (no block folds; the result stays
-    NaN); and, at the zone, a ticket one short of the block count over the
-    partials a launch on other data left, so that the first block to
-    arrive folds while most partials are stale (its 1,024 blocks do not
-    fit on the card at once, so the second wave has not started): a finite
-    wrong sum. A fold in another order is no planted fault: it gives the
-    same float bits too often (3 of 4 cases with half the blocks, on an
-    H100)."""
-    scaled = tp.Program("float32", (tp.Instruction(tp.OpCode.MUL, 2.0),
-                                    tp.Instruction(tp.OpCode.CMP_GE, 10.0),
-                                    tp.Instruction(tp.OpCode.RED_SUM)), name="scaled_sum")
-    programs_ = {"bare": (None, None), "scaled_sum": zf_ops.encode_program(scaled, DEVICE)}
-    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
-    rows, planted, checks = {}, {}, 0
-
-    def counts():
-        return zf_kernel.filtered_reduce.launches, zf_kernel.filtered_reduce_batched.launches
-
-    def held(key, runs, single, n0, calls, **extra):
-        nonlocal checks
-        n1 = counts()
-        bad = [k for k, r in runs.items() if not same_bits(torch, r, single)]
-        checks += len(runs) + 1
-        if bad:
-            failures.append(f"bit identity {key}: {bad} differ from the single launch")
-        if (n1[0] - n0[0], n1[1] - n0[1]) != calls:
-            failures.append(f"bit identity {key}: {n1[0] - n0[0]} single and "
-                            f"{n1[1] - n0[1]} batched launches for {calls} calls")
-        rows[key] = dict(runs=len(runs), differing=bad, **extra)
-
-    def plant(key, x, single, ops, imms, bpc, ticket, partials, what):
-        nonlocal checks
-        got = raw_filtered_reduce(torch, zf_kernel, x, ops, imms, bpc, ticket, partials)
-        caught = not same_bits(torch, got, single)
-        finite = bool(torch.isfinite(got))
-        planted[f"{what}:{key}"] = dict(value=float(got), finite=finite, caught=caught)
-        checks += 1
-        if not caught:
-            failures.append(f"the bit-identity check passed {what} at {key}")
-        return finite
-
-    for n_pages in (ARRAY_STRIPE, ZONE_BYTES // PAGE_BYTES):
-        x = card_pages(torch, "float32", n_pages, seed=500 + n_pages)
-        batch = torch.stack([card_pages(torch, "float32", n_pages, seed=501), x])
-        y = x.clone()
-        bpc = zf_kernel.blocks_per_chunk(x.numel(), 4)
-        for pname, (ops, imms) in programs_.items():
-            def call(t, ops=ops, imms=imms):
-                return zf_kernel.filtered_reduce(t, kind="sum", ops=ops, imms=imms)
-            n0 = counts()
-            single = call(x)
-            runs = {"batched_row": zf_kernel.filtered_reduce_batched(
-                batch, kind="sum", ops=ops, imms=imms)[1]}
-            for r in range(3):
-                runs[f"repeat_{r}"] = call(x)
-            torch.cuda.synchronize()
-            for s in (s1, s2):
-                s.wait_stream(torch.cuda.current_stream())
-            streamed = []
-            for s in (s1, s2):
-                with torch.cuda.stream(s):
-                    torch.cuda._sleep(2_000_000)     # about 1 ms: both queues fill first
-            for _ in range(4):
-                for s, t in ((s1, x), (s2, y)):
-                    with torch.cuda.stream(s):
-                        streamed.append(call(t))
-            torch.cuda.synchronize()
-            runs.update({f"stream{i % 2 + 1}_{i // 2}": r for i, r in enumerate(streamed)})
-            key = f"{pname}@{n_pages}"
-            held(key, runs, single, n0, (1 + 3 + len(streamed), 1), value=float(single),
-                 blocks_per_chunk=bpc)
-            # the planted faults, after the counted calls
-            partials = torch.empty(bpc, dtype=torch.int64, device=DEVICE)
-            plant(key, x, single, ops, imms, bpc, bpc, partials, "a ticket left at bpc")
-            if n_pages == ARRAY_STRIPE:
-                continue
-            raw_filtered_reduce(torch, zf_kernel, batch[0], ops, imms, bpc, 0, partials)
-            if not plant(key, x, single, ops, imms, bpc, bpc - 1, partials,
-                         "a ticket at bpc - 1"):
-                failures.append(f"the early fold at {key} gave no finite sum")
-        del x, y, batch
-    # the array's dispatch shape: 4 fold blocks a CUDA block
-    chunks, pages = BATCH_SHAPES[1]
-    xb = card_pages(torch, "float32", chunks * pages, seed=502).reshape(chunks, pages, -1)
-    picked = (0, 1, chunks // 2 + 1, chunks - 1)
-    for pname, (ops, imms) in programs_.items():
-        n0 = counts()
-        got = zf_kernel.filtered_reduce_batched(xb, kind="sum", ops=ops, imms=imms)
-        for i in picked:
-            single = zf_kernel.filtered_reduce(xb[i], kind="sum", ops=ops, imms=imms)
-            held(f"{pname}@batched_{chunks}x{pages}_row{i}", {"batched_row": got[i]}, single,
-                 n0, (picked.index(i) + 1, 1), value=float(single))
-    del xb
-    torch.cuda.empty_cache()
-    return dict(checks=checks, rows=rows, planted_faults=planted)
-
-
-# ------------------------------------------------------------ paged_attn
-
-def paged_tables(rng, B, NZ, ZL, MZ, edges, zps):
-    """(zone_table [B, MZ] int32, lengths [B] int32) on the host: random
-    distinct zones with a -1 tail and a length inside them, as
-    tests/test_kernels.py::_paged_case draws them. With ``edges`` (B >=
-    EDGE_ROWS) row 0 has length 0, row 1 an all -1 table, row 2 a -1 hole
-    in a full row, row 3 all MZ*ZL positions and row 4 a length that is a
-    multiple of ZL. Rows 5-7 sit at the kernel's splits of ``zps`` zones, in
-    full rows: row 5 has its second split all -1, row 6 valid zones in its
-    last split only, row 7 a length one token past the first split's end.
-    In a one-split table rows 5 and 6 keep only their last zone and row 7
-    one token of its last zone."""
-    tab = np.full((B, MZ), -1, np.int32)
-    lengths = np.zeros(B, np.int32)
-    for b in range(B):
-        nz = rng.integers(1, MZ + 1)
-        tab[b, :nz] = rng.choice(NZ, size=nz, replace=False)
-        lengths[b] = rng.integers(1, nz * ZL + 1)
-    if edges:
-        lengths[0] = 0
-        tab[1], lengths[1] = -1, 2 * ZL
-        tab[2] = rng.choice(NZ, size=MZ, replace=False)
-        tab[2, MZ // 2] = -1
-        lengths[2] = MZ * ZL
-        tab[3] = rng.choice(NZ, size=MZ, replace=False)
-        lengths[3] = MZ * ZL
-        lengths[4] = (tab[4] >= 0).sum() * ZL
-        for r in (5, 6, 7):
-            tab[r] = rng.choice(NZ, size=MZ, replace=False)
-            lengths[r] = MZ * ZL
-        if zps < MZ:
-            tab[5, zps:2 * zps] = -1
-            tab[6, :(-(-MZ // zps) - 1) * zps] = -1
-            lengths[7] = zps * ZL + 1
-        else:
-            tab[5:7, :MZ - 1] = -1
-            lengths[7] = (MZ - 1) * ZL + 1
-    return tab, lengths
-
-
-def paged_inputs(torch, B, H, KV, hd, NZ, ZL, MZ, dtype, seed, edges, zps):
-    """q, K, V drawn on the card from a seeded generator; the tables from a
-    seeded numpy draw."""
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-    tdt = getattr(torch, dtype)
-    q = torch.randn(B, H, hd, generator=g, device=DEVICE, dtype=tdt)
-    k = torch.randn(NZ, ZL, KV, hd, generator=g, device=DEVICE, dtype=tdt)
-    v = torch.randn(NZ, ZL, KV, hd, generator=g, device=DEVICE, dtype=tdt)
-    tab, lengths = paged_tables(np.random.default_rng(seed), B, NZ, ZL, MZ, edges, zps)
-    return q, k, v, torch.from_numpy(tab).to(DEVICE), torch.from_numpy(lengths).to(DEVICE)
-
-
-def paged_close(torch, got, want):
-    """(ok, max_abs_err, share) of a paged_attention result against ref.py:
-    ``share`` is the largest |got - want| over its limit in PAGED_TOL, so
-    ok needs a share <= 1, the same dtype and shape, and finite values."""
-    atol, rtol = PAGED_TOL[str(want.dtype).removeprefix("torch.")]
-    diff = (got.float() - want.float()).abs()
-    share = float((diff / (atol + rtol * want.float().abs())).max())
-    ok = (got.dtype == want.dtype and got.shape == want.shape
-          and bool(torch.isfinite(got).all()) and share <= 1.0)
-    return ok, float(diff.max()), share
-
-
-def paged_attention_checks(torch, pa_kernel, pa_ref, failures):
-    """The kernel against ref.py on the card: ({dtype: max_abs_err},
-    {dtype: largest share of the limit}, checks). Every case runs at the
-    split kernel.py::plan picks and at S = 1 (one split a row), and its
-    plan's shared memory is held against the kernel's own (pa_smem_bytes).
-    float32 references run with TF32 off, so their einsums are float32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cases = []                                      # (label, B, H, KV, hd, NZ, ZL, MZ, edges)
-    for B, H, KV, hd, NZ, ZL, MZ in TEST_GEOMETRIES:
-        cases.append((f"test {H}/{KV}/{hd}", B, H, KV, hd, NZ, ZL, MZ, False))
-        cases.append((f"test {H}/{KV}/{hd} edges", EDGE_ROWS, H, KV, hd, NZ, ZL, MZ, True))
-    for H, KV, hd in CONFIG_GEOMETRIES:
-        cases.append((f"config {H}/{KV}/{hd}", EDGE_ROWS, H, KV, hd, 64, 16, 6, True))
-    # 64 query heads on one KV head: more columns than a CTA's 8 consumer
-    # warps, so each sequence's heads are cut over 2 CTAs
-    cases.append(("wide group 64/1/64", EDGE_ROWS, 64, 1, 64, 64, 16, 6, True))
-    B, H, KV, hd, NZ, ZL, MZ = SPLIT_GEOMETRY
-    cases.append((f"splits {H}/{KV}/{hd}", B, H, KV, hd, NZ, ZL, MZ, False))
-    cases.append((f"splits {H}/{KV}/{hd} edges", B, H, KV, hd, NZ, ZL, MZ, True))
-    cases.append(("granite-8b pool", 64, GRANITE_HEADS, GRANITE["kv_heads"],
-                  GRANITE["head_dim"], GRANITE["num_zones"], GRANITE["zone_len"],
-                  GRANITE["max_zones_per_seq"], True))
-    errs = {"float32": 0.0, "bfloat16": 0.0}
-    shares = dict(errs)
-    n = 0
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    lib = pa_kernel.load()
-    for i, (label, B, H, KV, hd, NZ, ZL, MZ, edges) in enumerate(cases):
-        for dtype in PAGED_TOL:
-            itemsize = 4 if dtype == "float32" else 2
-            plan = pa_kernel.plan(B, H, KV, hd, MZ, ZL, itemsize, sms)
-            c_smem = lib.pa_smem_bytes(int(dtype == "bfloat16"), H, KV, hd, plan.kv_chunk,
-                                       plan.head_groups, plan.stage_tokens, plan.stages)
-            if c_smem != plan.smem:
-                failures.append(f"paged_attention {label} {dtype}: plan's shared memory "
-                                f"{plan.smem}, the kernel's {c_smem}")
-            q, k, v, tab, lengths = paged_inputs(torch, B, H, KV, hd, NZ, ZL, MZ, dtype,
-                                                 seed=500 + i, edges=edges,
-                                                 zps=plan.zones_per_split)
-            want = pa_ref.paged_attention_ref(q, k, v, tab, lengths)
-            for zps in sorted({plan.zones_per_split, MZ}):
-                got = pa_kernel.paged_attention_kernel(q, k, v, tab, lengths,
-                                                       zones_per_split=zps)
-                n += 1
-                ok, err, share = paged_close(torch, got, want)
-                errs[dtype] = max(errs[dtype], err)
-                shares[dtype] = max(shares[dtype], share)
-                if not ok:
-                    failures.append(f"paged_attention {label} {dtype} S={-(-MZ // zps)}: "
-                                    f"max_abs_err {err}, {share} of the limit")
-            del q, k, v, got, want
-    torch.cuda.empty_cache()
-    return errs, shares, n
-
-
-def fused_inputs(torch, dtype, seed):
-    """One zoned step's operands at FUSED_SHAPE in ``dtype``: the residual
-    stream ``x``, a residual ``r``, a norm scale, q and k of the step's
-    rows, their positions (the first at 0, the second at FUSED_TOP_POS),
-    and the MLP's gate and up."""
-    B, d, H, KV, hd, ff = FUSED_SHAPE.values()
-    g = torch.Generator(device=DEVICE).manual_seed(seed)
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=DEVICE) * scale).to(dtype)
-    pos = torch.randint(0, FUSED_TOP_POS + 1, (B,), generator=g, device=DEVICE,
-                        dtype=torch.int32)
-    pos[0], pos[1] = 0, FUSED_TOP_POS
-    return dict(x=randn(B, 1, d), r=randn(B, 1, d, scale=3.0), scale=randn(d),
-                q=randn(B, 1, H, hd), k=randn(B, 1, KV, hd), pos=pos,
-                gate=randn(B, 1, ff, scale=4.0), up=randn(B, 1, ff))
-
-
-def fused_checks(torch, df_kernel, common, cfg, failures):
-    """The zoned step's fused kernels against the model's plain functions on
-    the card at FUSED_SHAPE, in bfloat16 and float32: ({kernel: max_abs_err},
-    checks). swiglu is ``silu(gate) * up`` and rope_qk ``rope`` of q and of
-    k, bit for bit; add_rmsnorm's sum ``x + r`` bit for bit, and its norm
-    ``apply_norm``'s within one bfloat16 step, or in float32 within a
-    relative 1e-6: the row's sum of squares adds in another order than
-    PyTorch's mean, which moves the row's rsqrt by an ulp or a few. Each
-    call must count one launch."""
-    errs = dict.fromkeys(("add_rmsnorm", "rope_qk", "swiglu"), 0.0)
-    n = 0
-
-    def launched(wrapper, *args):
-        before = wrapper.launches
-        out = wrapper(*args)
-        if wrapper.launches != before + 1:
-            failures.append(f"{wrapper.__name__}: {wrapper.launches - before} launches a call")
-        return out
-
-    def gap(got, want):
-        return float((got.float() - want.float()).abs().max())
-    for i, dtype in enumerate((torch.bfloat16, torch.float32)):
-        t = fused_inputs(torch, dtype, seed=900 + i)
-        label = str(dtype).removeprefix("torch.")
-        got = launched(df_kernel.swiglu, t["gate"], t["up"])
-        want = common.silu(t["gate"]) * t["up"]
-        errs["swiglu"] = max(errs["swiglu"], gap(got, want))
-        if not torch.equal(got, want):
-            failures.append(f"swiglu {label}: {gap(got, want)} from silu(gate) * up")
-        rot = df_kernel.rope_table(t["pos"], FUSED_SHAPE["hd"], cfg.rope_theta)
-        got = launched(df_kernel.rope_qk, t["q"][:, 0], t["k"][:, 0], *rot)
-        for name, x, y in (("q", t["q"], got[0]), ("k", t["k"], got[1])):
-            want = common.rope(x, t["pos"][:, None, None], cfg.rope_theta)[:, 0]
-            errs["rope_qk"] = max(errs["rope_qk"], gap(y, want))
-            if not torch.equal(y, want):
-                failures.append(f"rope_qk {label} {name}: {gap(y, want)} from rope")
-        n += 2
-        for r in (t["r"], None):
-            got_x, got_h = launched(df_kernel.add_rmsnorm, t["x"], r, t["scale"])
-            want_x = t["x"] if r is None else t["x"] + r
-            want = common.apply_norm(cfg, {"scale": t["scale"]}, want_x).float()
-            diff = (got_h.float() - want).abs()
-            errs["add_rmsnorm"] = max(errs["add_rmsnorm"], float(diff.max()))
-            if dtype == torch.bfloat16:     # one step: 2^-7 of the value's power of two
-                step = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
-                ok = bool((diff <= step).all())
-            else:
-                ok = float((diff / want.abs().clamp(min=1e-30)).max()) <= 1e-6
-            n += 1
-            if not torch.equal(got_x, want_x) or not ok:
-                failures.append(f"add_rmsnorm {label} residual={r is not None}: x' equal "
-                                f"{torch.equal(got_x, want_x)}, h {float(diff.max())} apart")
-    return errs, n
-
-
-def phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod, zf_kernel, runs=5):
+def phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod, zf_kernel):
+    """The Figure 2 offload through NvmCsd, a cold and a warm run a tier,
+    each count against numpy's; its times are the fig2-nvm.scan cell's."""
     rng = np.random.default_rng(0)
-    t0 = time.perf_counter()
     dev = ZonedDevice(num_zones=1, zone_bytes=ZONE_BYTES)
     data = rng.integers(0, RAND_MAX, dev.zone_bytes // 4, dtype=np.int32)
     dev.zone_append(0, data)
     expected = int((data > RAND_MAX // 2).sum())
-    fill_s = time.perf_counter() - t0
     program = tp.filter_count("int32", "gt", RAND_MAX // 2)
     csd = NvmCsd(dev, device=DEVICE)
     torch.cuda.reset_peak_memory_stats()
@@ -1106,43 +528,31 @@ def phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod, zf_kernel, runs=5):
     copies0 = csd_mod.h2d.snapshot()[0]
     tiers = {}
     for tier in ("kernel", "jit"):
-        per_run = []
-        for r in range(runs + 1):
-            t = time.perf_counter()
+        for _ in range(OFFLOAD_RUNS):
             value, stats = csd.run_and_fetch(program, 0, tier=tier)
-            wall = time.perf_counter() - t
             check(int(value) == expected, f"{tier}: {int(value)} != numpy {expected}")
             check(stats.tier == tier, f"asked {tier}, ran {stats.tier}")
-            per_run.append((wall, stats))
-        cold, warm = per_run[0][1], per_run[1:]
-        tiers[tier] = dict(
-            value=int(value), offload_ms_median=statistics.median(w for w, _ in warm) * 1e3,
-            exec_ms_median=statistics.median(s.exec_seconds for _, s in warm) * 1e3,
-            h2d_ms_median=statistics.median(s.h2d_seconds for _, s in warm) * 1e3,
-            jit_seconds=cold.jit_seconds, warm_jit_seconds=max(s.jit_seconds for _, s in warm),
-            bytes_read=cold.bytes_read, bytes_returned=cold.bytes_returned,
-            movement_saved_bytes=cold.movement_saved_bytes)
+        tiers[tier] = dict(value=int(value), bytes_read=stats.bytes_read,
+                           bytes_returned=stats.bytes_returned,
+                           movement_saved_bytes=stats.movement_saved_bytes)
     launches = {"filtered_reduce": zf_kernel.filtered_reduce.launches,
                 "filtered_reduce_batched": zf_kernel.filtered_reduce_batched.launches}
     copies = csd_mod.h2d.snapshot()[0] - copies0
-    check(launches["filtered_reduce"] == runs + 1,
+    check(launches["filtered_reduce"] == OFFLOAD_RUNS,
           f"kernel tier launched filtered_reduce {launches['filtered_reduce']} times")
-    check(copies == 2 * (runs + 1), f"{copies} host-to-card copies for {2 * (runs + 1)} offloads")
+    check(copies == 2 * OFFLOAD_RUNS,
+          f"{copies} host-to-card copies for {2 * OFFLOAD_RUNS} offloads")
     peak = torch.cuda.max_memory_allocated()
 
     small = ZonedDevice(num_zones=1, zone_bytes=INTERP_ZONE_BYTES)
     small_data = data[: small.zone_bytes // 4]
     small.zone_append(0, small_data)
-    t = time.perf_counter()
     value, stats = NvmCsd(small, device=DEVICE).run_and_fetch(program, 0, tier="interp")
-    interp_s = time.perf_counter() - t
     check(int(value) == int((small_data > RAND_MAX // 2).sum()), "interp tier count")
-    tiers["interp_4MiB"] = dict(value=int(value), offload_ms=interp_s * 1e3,
-                                bytes_returned=stats.bytes_returned,
+    tiers["interp_4MiB"] = dict(value=int(value), bytes_returned=stats.bytes_returned,
                                 movement_saved_bytes=stats.movement_saved_bytes)
-    emit("offload", zone_bytes=dev.zone_bytes, fill_seconds=fill_s, expected=expected,
-         tiers=tiers, launches=launches, h2d_copies=copies,
-         max_memory_allocated=peak)
+    emit("offload", zone_bytes=dev.zone_bytes, expected=expected, runs_a_tier=OFFLOAD_RUNS,
+         tiers=tiers, launches=launches, h2d_copies=copies, max_memory_allocated=peak)
     csd_mod.unpin_zone_memory(dev)
     return data, launches, tiers["kernel"]["value"]
 
@@ -1308,7 +718,7 @@ SERVE_EVICT = 16                # wave-1 sequences evicted before wave 2
 RESIDENT_TOKENS = 4096          # tokens of each resident sequence
 
 
-def phase_serve(torch, KVZonePool, pa_kernel, pa_ref):
+def phase_serve(torch, KVZonePool, pa_kernel, pa_ref, paged_close):
     """Zoned-KV decode at granite-8b width through the port's entry points.
 
     Wave 1: 32 sequences append a 2,048-token history, then decode 8 steps
@@ -1323,7 +733,9 @@ def phase_serve(torch, KVZonePool, pa_kernel, pa_ref):
     synchronize), ``attend_ms`` (host clock around attend and a synchronize:
     zone table, its two copies, the kernel), ``zone_table_ms`` (a second
     zone_table call, timed alone) and ``kernel_ms`` (CUDA events around the
-    kernel relaunched on the step's tables after the counted window)."""
+    kernel relaunched on the step's tables after the counted window).
+    ``paged_close`` is the paged kernel's card check
+    (tests/test_torch_paged_attn_card.py)."""
     nz, zl = GRANITE["num_zones"], GRANITE["zone_len"]
     kvh, hd = GRANITE["kv_heads"], GRANITE["head_dim"]
     g = torch.Generator(device=DEVICE).manual_seed(13)
@@ -1363,7 +775,7 @@ def phase_serve(torch, KVZonePool, pa_kernel, pa_ref):
             torch.cuda.synchronize()
             t3 = time.perf_counter()
             ok, err, share = paged_close(
-                torch, out, pa_ref.paged_attention_ref(q, pool.k, pool.v, tab, lengths))
+                out, pa_ref.paged_attention_ref(q, pool.k, pool.v, tab, lengths))
             errs.append(err)
             shares.append(share)
             check(ok, f"serve wave {wave}: attend differs from ref.py by {err}, "
@@ -1445,7 +857,7 @@ def phase_serve(torch, KVZonePool, pa_kernel, pa_ref):
         want = pa_ref.paged_attention_ref(q, pool.k, pool.v, tab, lengths)
         for name, fault in faults.items():
             got = pa_kernel.paged_attention_kernel(q, pool.k, pool.v, *fault(tab, lengths))
-            ok, err, share = paged_close(torch, got, want)
+            ok, err, share = paged_close(got, want)
             planted[name].append(dict(max_abs_err=err, share_of_limit=share))
             check(not ok, f"the serve check passed a planted fault: {name}")
 
@@ -2198,7 +1610,6 @@ def phase_zoned(torch, cfgs, models, serve_mod, df_kernel, pa_kernel, card):
     cache (tests/test_torch_decode_fused.py::plain_zoned_step) within
     ZONED_LIMITS, and the same logits one row over (a row served another
     row's answer) must fail them. Returns the launches a wrapper."""
-    sys.path.insert(0, str(ROOT / "tests"))
     from test_torch_decode_fused import plain_zoned_step
     from repro_torch.serve import KVZoneCache
     t_phase = time.perf_counter()
@@ -3409,8 +2820,14 @@ def fused_timing(torch, df_kernel, common, cfg):
     that make the step's angles once a step (rope_table)."""
     import torch.nn.functional as F
     B, d, H, KV, hd, ff = FUSED_SHAPE.values()
-    t = fused_inputs(torch, torch.bfloat16, seed=950)
-    x, r, scale, gate, up, pos = (t[k] for k in ("x", "r", "scale", "gate", "up", "pos"))
+    g = torch.Generator(device=DEVICE).manual_seed(950)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=DEVICE) * scale).to(torch.bfloat16)
+    x, r, scale, gate, up = (randn(B, 1, d), randn(B, 1, d, scale=3.0), randn(d),
+                             randn(B, 1, ff, scale=4.0), randn(B, 1, ff))
+    t = dict(q=randn(B, 1, H, hd), k=randn(B, 1, KV, hd))
+    pos = torch.randint(0, 4096, (B,), generator=g, device=DEVICE, dtype=torch.int32)
     q3, k3 = t["q"][:, 0].contiguous(), t["k"][:, 0].contiguous()
     rot = df_kernel.rope_table(pos, hd, cfg.rope_theta)
     act, qk = B * d * 2, B * (H + KV) * hd
@@ -3486,7 +2903,7 @@ def phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, data, pa_kernel, pa_ref, 
     # of NvmCsd, and one array dispatch (512 chunks x 64 pages, 128 MiB);
     # beside them the 8-chunk shape of earlier runs and one 256 KiB chunk
     # (an array chunk re-served alone)
-    chunks, pages = BATCH_SHAPES[1]
+    chunks, pages = DISPATCH_SHAPE
     rows = {
         "filtered_reduce": single(x),
         "filtered_reduce_batched": batched(x[:chunks * pages].reshape(chunks, pages, 1024)),
@@ -3562,6 +2979,7 @@ def main():
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))
     import repro_torch.array as array_mod
     import repro_torch.data as data_mod
     import repro_torch.faults.crash as crash_mod
@@ -3589,6 +3007,7 @@ def main():
     import repro_torch.train.optimizer as opt_mod
     import repro_torch.train.step as step_mod
     import repro_torch.train.trainer as trainer_mod
+    from test_torch_paged_attn_card import paged_close
 
     t_start = time.perf_counter()
     try:
@@ -3599,8 +3018,8 @@ def main():
         times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, zone, pa_kernel, pa_ref,
                              build, df_kernel, common, granite)   # the Figure 2 zone,
         del zone                                                  # as phase_offload draws it
-        errs = phase_kernels(torch, tp, zf_kernel, zf_ops, zf_ref, pa_kernel, pa_ref, NvmCsd,
-                             ZonedDevice, csd_mod, df_kernel, common, granite)
+        torch.cuda.empty_cache()        # the card tests run in a process of their own
+        errs = phase_kernels()
         data, launches, csd_count = phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod,
                                                   zf_kernel)
         on_array = phase_array(torch, tp, ZonedDevice, array_mod, csd_mod, trace, zf_kernel,
@@ -3608,7 +3027,8 @@ def main():
         launches["filtered_reduce_batched"] = phase_batched(torch, tp, zf_kernel, zf_ops, data)
         for kname, n in on_array.items():
             launches[kname] += n
-        launches["paged_attention"] = phase_serve(torch, KVZonePool, pa_kernel, pa_ref)
+        launches["paged_attention"] = phase_serve(torch, KVZonePool, pa_kernel, pa_ref,
+                                                  paged_close)
         phase_pipeline(torch, ZonedDevice, array_mod, csd_mod, data_mod, zf_kernel, trace,
                        smi_line)
         phase_checkpoint(torch, ZonedDevice, train_mod, tree_mod, crash_mod, smi_line)

@@ -7,8 +7,8 @@ an id past the pool to the last zone, as jnp's gather clamps), positions
 ``p >= length`` or in a ``-1`` zone are masked with ``-1e30``, and the softmax
 runs in float32. A row with no valid position therefore gets the uniform
 mean of V over all ``MZ * ZL`` clamped positions. The CPU tests run it in
-place of the kernel and ``chip_smoke.py`` holds the kernel against it on the
-card; nothing on the card's main path calls it.
+place of the kernel and ``tests/test_torch_paged_attn_card.py`` holds the
+kernel against it on the card; nothing on the card's main path calls it.
 """
 from __future__ import annotations
 

@@ -2,9 +2,9 @@
 
 They compute what ``csrc/zone_filter.cu`` computes, with the reference's
 accumulator and result types (``src/repro/kernels/zone_filter/kernel.py``).
-The CPU tests run them in place of the kernel, and ``chip_smoke.py`` holds
-the kernel against them on the card. Nothing on the port's main path calls
-them when a card is present.
+The CPU tests run them in place of the kernel, and
+``tests/test_torch_zone_filter_card.py`` holds the kernel against them on the
+card. Nothing on the port's main path calls them when a card is present.
 
 uint32 streams are widened to int64 for the arithmetic (torch has no
 comparison, remainder, shift or min/max for uint32 on the CPU) and masked

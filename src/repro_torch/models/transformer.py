@@ -274,18 +274,18 @@ def _attn_block_rest(cfg: ModelConfig, kind: str, p: dict, x, h, a):
     """An attention block's output after its attention ``a`` of ``h`` (the
     normed ``x``): the MLP or MoE, in parallel or in sequence."""
     if cfg.parallel_block:
-        if kind == "attn_moe":
-            m, _ = moe_mod.apply_moe(cfg, p["moe"], h)
-        else:
-            m = apply_mlp(cfg, p["mlp"], h)
-        return x + a + m
+        return x + a + _ffn(cfg, kind, p, h, apply_mlp)
     x = x + a
-    h2 = apply_norm(cfg, p["ln2"], x)
+    return x + _ffn(cfg, kind, p, apply_norm(cfg, p["ln2"], x), apply_mlp)
+
+
+def _ffn(cfg: ModelConfig, kind: str, p: dict, h, mlp):
+    """The block's feed-forward of ``h``: ``apply_moe`` for ``attn_moe``,
+    else ``mlp`` (``apply_mlp``, or the zoned step's ``_zoned_mlp``)."""
     if kind == "attn_moe":
-        m, _ = moe_mod.apply_moe(cfg, p["moe"], h2)
-    else:
-        m = apply_mlp(cfg, p["mlp"], h2)
-    return x + m
+        m, _ = moe_mod.apply_moe(cfg, p["moe"], h)
+        return m
+    return mlp(cfg, p["mlp"], h)
 
 
 ZONED_KINDS = ("attn_mlp", "dense0", "attn_moe")
@@ -335,16 +335,10 @@ def _zoned_layer(cfg: ModelConfig, kind: str, p: dict, x, r, zoned, layer: int, 
     x, h = _add_norm(cfg, p["ln1"], x, r)
     a = attn.zoned_decode_attention(cfg, p["attn"], h, zoned, layer, rot)
     if cfg.parallel_block:
-        if kind == "attn_moe":
-            m, _ = moe_mod.apply_moe(cfg, p["moe"], h)
-        else:
-            m = apply_mlp(cfg, p["mlp"], h)
+        m = _ffn(cfg, kind, p, h, apply_mlp)
         return x + a, m
     x, h2 = _add_norm(cfg, p["ln2"], x, a)
-    if kind == "attn_moe":
-        m, _ = moe_mod.apply_moe(cfg, p["moe"], h2)
-        return x, m
-    return x, _zoned_mlp(cfg, p["mlp"], h2)
+    return x, _ffn(cfg, kind, p, h2, _zoned_mlp)
 
 
 def _decode_zoned(cfg: ModelConfig, params: dict, zoned, tokens: torch.Tensor,

@@ -37,6 +37,10 @@ def randn(*shape, dtype, seed, scale=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
 
 
+def _gap(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
 def launched(wrapper, *args):
     before = wrapper.launches
     out = wrapper(*args)
@@ -48,33 +52,39 @@ def launched(wrapper, *args):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [B * FF, 4099])          # 16-byte packs, and one value a load
-def test_swiglu_is_silu_times_up_bit_for_bit(dtype, n):
+def test_swiglu_is_silu_times_up_bit_for_bit(dtype, n, record_property):
     card()
     gate = randn(n, dtype=dtype, seed=1, scale=4.0)
     up = randn(n, dtype=dtype, seed=2)
     got = launched(decode_fused.swiglu, gate, up)
-    assert torch.equal(got, silu(gate) * up)
+    want = silu(gate) * up
+    record_property("max_abs_err.swiglu", _gap(got, want))
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("hd", [HD, 20])                # 16-byte packs, and one value a load
-def test_rope_qk_is_rope_bit_for_bit(dtype, hd):
+def test_rope_qk_is_rope_bit_for_bit(dtype, hd, record_property):
     card()
     q = randn(B, 1, H, hd, dtype=dtype, seed=3)
     k = randn(B, 1, KV, hd, dtype=dtype, seed=4)
     pos = ragged_positions(B, 5).cuda()
     got_q, got_k = launched(decode_fused.rope_qk, q[:, 0], k[:, 0],
                             *decode_fused.rope_table(pos, hd, THETA))
-    assert torch.equal(got_q, rope(q, pos[:, None, None], THETA)[:, 0])
-    assert torch.equal(got_k, rope(k, pos[:, None, None], THETA)[:, 0])
+    want_q = rope(q, pos[:, None, None], THETA)[:, 0]
+    want_k = rope(k, pos[:, None, None], THETA)[:, 0]
+    record_property("max_abs_err.rope_qk", max(_gap(got_q, want_q), _gap(got_k, want_k)))
+    assert torch.equal(got_q, want_q)
+    assert torch.equal(got_k, want_k)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("scale_dtype", DTYPES)
 @pytest.mark.parametrize("d,residual", [(D, True), (D, False), (4100, True)])
-def test_add_rmsnorm_is_the_add_and_apply_norm(dtype, scale_dtype, d, residual):
+def test_add_rmsnorm_is_the_add_and_apply_norm(dtype, scale_dtype, d, residual,
+                                               record_property):
     """x' bit for bit; h within one bfloat16 step, or in float32 within a
     relative 1e-6 (about 8 ulps): the row's sum of squares adds in another
     order than PyTorch's mean, so it may differ in its last bits, and with it
@@ -89,6 +99,7 @@ def test_add_rmsnorm_is_the_add_and_apply_norm(dtype, scale_dtype, d, residual):
     assert torch.equal(got_x, want_x)
     want = apply_norm(RMS, {"scale": scale}, want_x).float()
     gap = (got_h.float() - want).abs()
+    record_property("max_abs_err.add_rmsnorm", float(gap.max()))
     if dtype == torch.bfloat16:
         step = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
         assert (gap <= step).all()

@@ -20,6 +20,7 @@ from repro_torch.kernels.paged_attn import paged_attention
 from repro_torch.kernels.paged_attn.ref import (paged_attention_ref,
                                                 paged_attention_split_ref)
 from repro_torch.serve import KVZonePool
+from test_torch_paged_attn_card import CONFIG_GEOMETRIES
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -222,7 +223,8 @@ SPLIT_GEOMETRY = (3, 8, 2, 32, 24, 32, 20)
 _NZ, _ZL, _MZ = SPLIT_GEOMETRY[4:]
 H100_SMS = 132
 # granite-8b's decode shapes (src/repro/configs/granite_8b.py; chip_smoke.py's
-# serve phase and its timing row): (B, H, KV, hd, MZ, ZL), bf16
+# serve phase, and test_torch_paged_attn_card.py's granite-8b pool and
+# chip_smoke.py's timing row): (B, H, KV, hd, MZ, ZL), bf16
 SERVE_SHAPE = (32, 32, 8, 128, 64, 128)
 TIMING_SHAPE = (64, 32, 8, 128, 64, 128)
 ZONES_PER_SPLIT = {
@@ -331,10 +333,6 @@ def test_split_layout_at_granite_width():
     assert pa_kernel.plan(*SPLIT_GEOMETRY[:4], _MZ, _ZL, 4, H100_SMS).splits == 3
 
 
-# chip_smoke.py::CONFIG_GEOMETRIES: (H, KV, hd) of every attention model in
-# src/repro/configs
-CONFIG_GEOMETRIES = ((32, 8, 128), (24, 2, 128), (32, 8, 80), (16, 1, 256),
-                     (16, 16, 64), (96, 8, 128), (16, 16, 128), (48, 8, 128))
 PLAN_SHAPES = {"timing": TIMING_SHAPE, "serve": SERVE_SHAPE,
                **{f"config_{H}_{KV}_{hd}": (8, H, KV, hd, 64, 128)
                   for H, KV, hd in CONFIG_GEOMETRIES},
