@@ -11,11 +11,12 @@ Phases, one JSON line each; any failed phase exits non-zero:
   kernels   every kernel held against its plain PyTorch version on the card:
             the cuda-marked cases of CARD_TESTS (the zone filter, the paged
             kernel, the fused elementwise kernels, the zoned step's graph,
-            NvmCsd's in-place extents) in one pytest process, each file's
-            docstring saying what it holds. Any failure, error or skip fails
+            the zone-admission kernel, NvmCsd's in-place extents) in one
+            pytest process, each file's docstring saying what it holds. Any failure, error or skip fails
             the phase; its line has the cases a file, the comparisons they
             make, each kernel's max_abs_err, and every value the cases
-            record (the paged kernel's error and share of its limit a dtype)
+            record (the paged kernel's error and share of its limit a dtype,
+            the zone-admission kernel's time beside its bound)
   offload   the paper's Figure 2 offload through NvmCsd: one 256 MiB zone of
             random int32, count > RAND_MAX/2, a cold and a warm run on the
             kernel and jit tiers (interp on a 4 MiB zone), each against
@@ -68,10 +69,12 @@ Phases, one JSON line each; any failed phase exits non-zero:
             kvzone-granite.decode cell's N(0, 0.02^2) matrices, norm scales
             near 1) served from a KVZoneCache through
             ServeModel.decode_sessions, one CUDA graph a step: 64 sessions
-            of 16-500 prompt tokens, 6 steps. The paged and fused kernels'
-            launches counted a step from 0 (73 add_rmsnorm and 36 each of
-            rope_qk, swiglu and paged_attention a replay, twice that at the
-            first step; they count into the kernels line), each step's
+            of 16-500 prompt tokens admitted into two caches (one
+            zone_admit launch an admission, counted into the kernels line),
+            6 steps. The paged and fused kernels' launches counted a step
+            from 0 (73 add_rmsnorm and 36 each of rope_qk, swiglu and
+            paged_attention a replay, twice that at the first step; they
+            count into the kernels line), each step's
             logits against the plain functions' eager step within the
             cell's limits, and a row's neighbour's logits must fail them
   train     the training path: h2o-danube-1.8b at its published widths and
@@ -141,8 +144,9 @@ Phases, one JSON line each; any failed phase exits non-zero:
             yardstick (F.rms_norm, F.silu; none for RoPE). It runs right
             after the build, before the kernels phase: torch.profiler sees
             every kernel early in a process, not late (profiled_ms). The
-            kernel table takes its times from here, its max_abs_err from the
-            kernels phase and its launches from the phases that count them
+            kernel table takes its times from here (zone_admit's from the
+            kernels phase's card case), its max_abs_err from the kernels
+            phase and its launches from the phases that count them
 
 Then the ``nvidia-smi`` line, the kernel table as one JSON object, and last
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the repository
@@ -172,9 +176,9 @@ DEVICE = "cuda"
 # the kernels phase: every cuda-marked case of these files, one pytest process
 CARD_TESTS = ("tests/test_torch_zone_filter_card.py", "tests/test_torch_paged_attn_card.py",
               "tests/test_torch_decode_fused_card.py", "tests/test_torch_zoned_decode_card.py",
-              "tests/test_torch_staging.py")
+              "tests/test_torch_zone_admit_card.py", "tests/test_torch_staging.py")
 KERNELS = ("filtered_reduce", "filtered_reduce_batched", "paged_attention", "add_rmsnorm",
-           "rope_qk", "swiglu")
+           "rope_qk", "swiglu", "zone_admit")
 OFFLOAD_RUNS = 2                # the offload phase's runs a tier: a cold one, then a warm one
 DISPATCH_SHAPE = (512, 64)      # chunks x pages of one array dispatch
 ZONE_BYTES = 256 * 1024 * 1024  # the Figure 2 zone
@@ -469,8 +473,9 @@ def phase_build(kernel_modules, _build):
 def phase_kernels():
     """The cuda-marked cases of CARD_TESTS in one pytest process, each
     kernel against its plain version (the card files say what each holds).
-    Any failure, error or skip fails the phase. Returns {kernel: max_abs_err}
-    from the cases' recorded ``max_abs_err.<kernel>[.<detail>]`` properties;
+    Any failure, error or skip fails the phase. Returns ({kernel:
+    max_abs_err} from the cases' recorded ``max_abs_err.<kernel>[.<detail>]``
+    properties, every recorded property);
     ``checks`` is the comparisons the cases make (a case records ``checks``
     where it makes more than one)."""
     import xml.etree.ElementTree as ET
@@ -508,7 +513,7 @@ def phase_kernels():
           "failed, errored or skipped")
     missing = [k for k in KERNELS if k not in errs]
     check(not missing, f"no card test recorded max_abs_err for {missing}")
-    return errs
+    return errs, props
 
 
 def phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod, zf_kernel):
@@ -1597,13 +1602,14 @@ def phase_model(torch, cfgs, models, api, serve_mod, tree_mod, counted, card):
          seconds=time.perf_counter() - t_phase)
 
 
-def phase_zoned(torch, cfgs, models, serve_mod, df_kernel, pa_kernel, card):
+def phase_zoned(torch, cfgs, models, serve_mod, df_kernel, pa_kernel, za_kernel, card):
     """granite-8b served from a zoned KV cache as the kvzone-granite.decode
     cell serves it: ServeModel.decode_sessions over a KVZoneCache, one CUDA
     graph a step with the paged kernel and the fused elementwise kernels
-    inside. ZONED_ROWS sessions, each a prompt prefilled and admitted, then
-    ZONED_STEPS steps of one token a session. The wrappers' counts are set
-    to 0 just before the steps and read a step at a time: 2 L + 1
+    inside. ZONED_ROWS sessions, each a prompt prefilled and admitted (one
+    zone_admit launch an admission a cache), then ZONED_STEPS steps of one
+    token a session. The wrappers' counts are set to 0 just before the
+    steps and read a step at a time: 2 L + 1
     add_rmsnorm and L each of rope_qk, swiglu and paged_attention a step
     (twice that at the first, whose eager run precedes the capture). Each
     step's logits against the plain functions' eager step on a second
@@ -1631,12 +1637,16 @@ def phase_zoned(torch, cfgs, models, serve_mod, df_kernel, pa_kernel, card):
     rng = np.random.default_rng(SEED)
     rows = list(range(ZONED_ROWS))
     lengths = rng.integers(ZONED_PROMPT[0], ZONED_PROMPT[1] + 1, ZONED_ROWS)
+    za_kernel.zone_admit.launches = 0
     for sid, n in zip(rows, lengths):
         prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, int(n)))).to(DEVICE)
         _, k, v = model.prompt_kv({"tokens": prompt})
         for c in (graphed, eager):
             c.admit(sid, k[:, 0], v[:, 0])
         del k, v
+    admitted = za_kernel.zone_admit.launches
+    check(admitted == 2 * ZONED_ROWS,
+          f"{2 * ZONED_ROWS} admissions launched zone_admit {admitted} times")
     wrappers = {"add_rmsnorm": df_kernel.add_rmsnorm, "rope_qk": df_kernel.rope_qk,
                 "swiglu": df_kernel.swiglu, "paged_attention": pa_kernel.paged_attention_kernel}
     per_step = {"add_rmsnorm": 2 * L + 1, "rope_qk": L, "swiglu": L, "paged_attention": L}
@@ -1669,6 +1679,7 @@ def phase_zoned(torch, cfgs, models, serve_mod, df_kernel, pa_kernel, card):
         check(not within(rec["neighbour"]),
               f"step {t}: a row's neighbour's logits pass the check {rec['neighbour']}")
     launches = {k: sum(st["launches"][k] for st in steps) for k in wrappers}
+    launches["zone_admit"] = admitted
     graph_launches = {w.__name__: n for w, n in model._graph.launches.items()}
     emit("zoned", card=card, rows=ZONED_ROWS, prompt_tokens=[int(lengths.min()),
          int(lengths.max())], pool=ZONED_POOL, limits=ZONED_LIMITS, steps=steps,
@@ -2943,6 +2954,7 @@ def kernel_table(times, errs, launches):
     zf_source = "src/repro_torch/kernels/zone_filter/csrc/zone_filter.cu"
     df_source = "src/repro_torch/kernels/decode_fused/csrc/decode_fused.cu"
     fused = "none: XLA fuses these passes of src/repro/models"
+    admit = "none: src/repro/serve/kv_zones.py appends token by token with .at[].set"
     table = []
     for kname, source, replaces in (
             ("filtered_reduce", zf_source, "src/repro/kernels/zone_filter/kernel.py:75"),
@@ -2951,7 +2963,8 @@ def kernel_table(times, errs, launches):
             ("paged_attention", "src/repro_torch/kernels/paged_attn/csrc/paged_attn.cu",
              "src/repro/kernels/paged_attn/kernel.py:73"),
             ("add_rmsnorm", df_source, fused), ("rope_qk", df_source, fused),
-            ("swiglu", df_source, fused)):
+            ("swiglu", df_source, fused),
+            ("zone_admit", "src/repro_torch/kernels/zone_admit/csrc/zone_admit.cu", admit)):
         t = times[kname]
         table.append({"name": kname, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": launches[kname],
@@ -2993,6 +3006,7 @@ def main():
     from repro_torch.kernels.paged_attn import kernel as pa_kernel
     from repro_torch.kernels.paged_attn import ref as pa_ref
     from repro_torch.kernels.decode_fused import kernel as df_kernel
+    from repro_torch.kernels.zone_admit import kernel as za_kernel
     from repro_torch.kernels.zone_filter import ref as zf_ref
     from repro_torch.serve import KVZonePool
     from repro_torch.telemetry import trace
@@ -3012,14 +3026,14 @@ def main():
     t_start = time.perf_counter()
     try:
         name, smi_line = phase_device(torch)
-        build = phase_build([zf_kernel, pa_kernel, df_kernel], _build)
+        build = phase_build([zf_kernel, pa_kernel, df_kernel, za_kernel], _build)
         granite = cfgs.get_config(MODEL_ARCH)
         zone = np.random.default_rng(0).integers(0, RAND_MAX, ZONE_BYTES // 4, dtype=np.int32)
         times = phase_timing(torch, tp, zf_kernel, zf_ops, zf_ref, zone, pa_kernel, pa_ref,
                              build, df_kernel, common, granite)   # the Figure 2 zone,
         del zone                                                  # as phase_offload draws it
         torch.cuda.empty_cache()        # the card tests run in a process of their own
-        errs = phase_kernels()
+        errs, recorded = phase_kernels()
         data, launches, csd_count = phase_offload(torch, tp, NvmCsd, ZonedDevice, csd_mod,
                                                   zf_kernel)
         on_array = phase_array(torch, tp, ZonedDevice, array_mod, csd_mod, trace, zf_kernel,
@@ -3037,7 +3051,7 @@ def main():
                    df_kernel.swiglu)
         phase_model(torch, cfgs, models, api, serve_mod, tree_mod, counted, smi_line)
         for kname, n in phase_zoned(torch, cfgs, models, serve_mod, df_kernel, pa_kernel,
-                                    smi_line).items():
+                                    za_kernel, smi_line).items():
             launches[kname] = launches.get(kname, 0) + n
         train_out = phase_train(torch, cfgs, models, api, launch, step_mod, opt_mod,
                                 trainer_mod, train_mod, tree_mod, ZonedDevice, counted, smi_line)
@@ -3054,6 +3068,9 @@ def main():
         return 1
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi_line)
+    times["zone_admit"] = {key: recorded[f"{key}.zone_admit"]
+                           for key in ("ms", "plain_ms", "bound_ms")}
+    times["zone_admit"].update(bound_by="bytes", library_ms=None)
     print(json.dumps({"kernels": kernel_table(times, errs, launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -22,8 +22,10 @@ ZL, KV, hd]`` K and V, one free list and one zone-table row a sequence for
 all ``L`` layers, so ``k[l]`` is the pool the kernel reads for layer ``l``.
 A decode step reserves its rows' slots and copies its zone table to the
 card once (:meth:`KVZoneCache.reserve`), then writes and attends layer by
-layer; a prompt's K/V for every layer goes in with one copy a zone run
-(:meth:`KVZoneCache.admit`). Traced, it records ``kv.admit``, ``kv.evict``,
+layer; a prompt's K/V for every layer goes into its zones with one launch of
+the zone-admission kernel on the card (:meth:`KVZoneCache.admit`,
+:mod:`repro_torch.kernels.zone_admit`; on the CPU its plain version, one
+copy a zone run). Traced, it records ``kv.admit``, ``kv.evict``,
 ``kv.table``, ``kv.append`` (one layer's write) and ``kv.attend`` (one
 layer's launch, host side).
 """
@@ -40,6 +42,7 @@ from repro_torch._device import host_tensor, host_to_device, resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attn import kernel as paged_kernel
 from repro_torch.kernels.paged_attn.ops import paged_attention
+from repro_torch.kernels.zone_admit import kernel as admit_kernel
 from repro_torch.telemetry import trace
 from repro_torch.telemetry.metrics import MetricsRegistry, StatsView
 
@@ -234,8 +237,9 @@ class KVZoneCache(_ZoneAllocator):
                  kv_heads: int, head_dim: int, max_zones_per_seq: int,
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":      # its attends' kernel builds while the caller sets up
+        if self.device.type == "cuda":      # its kernels build while the caller sets up
             _build.load_in_background(paged_kernel.load, "paged_attn-load")
+            _build.load_in_background(admit_kernel.load, "zone_admit-load")
         shape = (num_layers, num_zones, zone_len, kv_heads, head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=dtype, device=self.device)
@@ -246,8 +250,11 @@ class KVZoneCache(_ZoneAllocator):
 
     def admit(self, seq_id: int, k: torch.Tensor, v: torch.Tensor) -> None:
         """A new sequence holding a prompt's K/V (``[num_layers, n, KV,
-        head_dim]``, any device and float dtype): one in-place copy of K
-        and one of V a zone run, each for every layer."""
+        head_dim]``, any device and float dtype) in fresh zones: on the
+        card one launch of the zone-admission kernel for K and V of every
+        layer (a source on another device or in another dtype moved or
+        cast once first), on the CPU one copy of K and one of V a zone
+        run."""
         if k.dim() != 4 or k.shape != v.shape or k.shape[0] != self.num_layers:
             raise ValueError(f"need k and v of one [{self.num_layers}, n, KV, head_dim] "
                              f"shape, got {tuple(k.shape)} and {tuple(v.shape)}")
@@ -259,11 +266,11 @@ class KVZoneCache(_ZoneAllocator):
             st = _SeqState()
             self._check_room([st], [zones])
             self._seqs[seq_id] = st
-            for done in range(0, n, self.zone_len):
-                run = min(n - done, self.zone_len)
-                z = self._alloc_zone(st)
-                self.k[:, z, :run].copy_(k[:, done:done + run])
-                self.v[:, z, :run].copy_(v[:, done:done + run])
+            for _ in range(zones):
+                self._alloc_zone(st)
+            if self.device.type == "cuda":
+                k, v = (_admit_source(t, self.k) for t in (k, v))
+            admit_kernel.zone_admit(self.k, self.v, k, v, st.zones)
             st.length = n
             self._c_admitted.inc(n)
 
@@ -316,6 +323,13 @@ class KVZoneCache(_ZoneAllocator):
         the paged-attention kernel on ``k[layer]``, ``v[layer]``."""
         with trace.span("kv.attend"):
             return paged_attention(q, self.k[layer], self.v[layer], table, lengths)
+
+
+def _admit_source(t: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
+    """``t`` as the admission kernel takes it: on the pool's device in its
+    dtype, each token's row dense (moved, cast or copied once where not)."""
+    t = t.to(pool.device, pool.dtype)
+    return t if admit_kernel.rows_dense(t) else t.contiguous()
 
 
 def _pool_tensor(a: np.ndarray) -> torch.Tensor:
