@@ -4,8 +4,10 @@ The ``nvm`` kind and ``filter_count`` are held to digests of what the
 harness made before they were moved out of it (values, answers, command
 streams, warm-ups and roofline bounds), so the two ``fig2-nvm`` cells read
 the same work. A stand-in kind, added as files alone to a copy of the
-benchmark, runs, is checked by its own tolerance and fails under its own
-fault, without an edit to the harness.
+benchmark, runs, is checked by its own tolerance, fails under its own fault
+and reports a per-layer metric listed for its cell alone, without an edit
+to the harness. A cell gets the per-layer metrics that apply to it
+(:func:`applicable`), whatever entries other cells and kinds have added.
 """
 import hashlib
 import itertools
@@ -205,12 +207,42 @@ def work(config, command):
     return 2 * n + 2 * config["cols"] + 4 * command.rows, 2 * n
 '''
 
+STANDIN_METRIC = '''"""``matvec_us``: the stand-in's commands in the traced slice, mean
+span-clock time, in us."""
+
+
+def read(td):
+    if not td.commands:
+        return None
+    return sum(c.mono1 - c.mono0 for c in td.commands) / len(td.commands) * 1e6
+'''
+
 STANDIN_CONFIG = {"name": "standin", "kind": "matvec", "reference": "matvec",
                   "rows": 512, "cols": 256, "reduced": {},
                   "kernel": {"name_contains": "gemv", "launch_counters": []}}
 STANDIN_CELL = {"name": "standin.rows", "config": "standin", "traffic": "rows",
                 "chips": 1, "why": "a stand-in kind for the harness's tests"}
+STANDIN_ENTRY = {"name": "matvec_us", "unit": "us", "better": "lower",
+                 "source": "host_clock", "layer": "stand-in matvec",
+                 "moves": "cmd_p50_ms", "workloads": ["standin.rows"]}
 NVM_ONLY = {"verify_ms", "h2d_ms", "launch_us", "sync_us", "frontend_us"}
+EVERY_CELL = {"kernel_roofline", "device_idle", "gc_ms"}
+KVZONE = spec.kind(spec.load_json(spec.HERE / "configs" / "kvzone-granite.json"))
+
+
+def applicable(bench: dict, name: str) -> set:
+    """The per-layer metrics of ``bench`` that cell ``name`` reports: the
+    entries with no ``workloads`` list, those whose list names the cell,
+    and those its kind's ``LAYER_METRICS`` name."""
+    config = next(spec.load_json(spec.HERE / "configs" / f"{w['config']}.json")
+                  for w in bench["workloads"] if w["name"] == name)
+    own = set(getattr(spec.kind(config), "LAYER_METRICS", ()))
+    return {m["name"] for m in bench["per_layer"]
+            if "workloads" not in m or name in m["workloads"] or m["name"] in own}
+
+
+def names(c: spec.Cell) -> set:
+    return {m["name"] for m in c.per_layer}
 
 
 def files_of_the_checkout():
@@ -219,10 +251,12 @@ def files_of_the_checkout():
     return {p: (p.stat().st_mtime_ns, p.stat().st_size) for p in paths}
 
 
-def added_as_files_alone(tmp_path, monkeypatch, cell: dict, files: dict) -> None:
+def added_as_files_alone(tmp_path, monkeypatch, cell: dict, files: dict,
+                         metrics: tuple = ()) -> dict:
     """A copy of the benchmark's data, kind, reference and metric files in
     ``tmp_path``, with ``files`` ({path under the benchmark: text}) added and
-    ``cell`` appended to a copy of ``BENCHMARK.json``; ``spec`` reads it."""
+    ``cell`` and the per-layer entries ``metrics`` appended to a copy of
+    ``BENCHMARK.json``, which is returned; ``spec`` reads it."""
     bench = spec.load_json(spec.REPO / "BENCHMARK.json")
     here = tmp_path / "zcsd_bench"
     for d in ("configs", "traffic", "reference", "metrics", "kinds"):
@@ -230,22 +264,28 @@ def added_as_files_alone(tmp_path, monkeypatch, cell: dict, files: dict) -> None
     for path, text in files.items():
         (here / path).write_text(text)
     bench["workloads"].append(cell)
+    bench["per_layer"].extend(metrics)
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     monkeypatch.setattr(spec, "HERE", here)
     monkeypatch.setattr(spec, "REPO", tmp_path)
+    return bench
 
 
 def test_a_kind_added_as_files_alone_runs_is_checked_and_faulted(tmp_path, monkeypatch):
     before = files_of_the_checkout()
-    added_as_files_alone(tmp_path, monkeypatch, STANDIN_CELL, {
+    bench = added_as_files_alone(tmp_path, monkeypatch, STANDIN_CELL, {
         "kinds/matvec.py": STANDIN_KIND, "reference/matvec.py": STANDIN_REFERENCE,
         "configs/standin.json": json.dumps(STANDIN_CONFIG),
-        "traffic/rows.json": json.dumps({"rows": [16, 32, 64]})})
+        "traffic/rows.json": json.dumps({"rows": [16, 32, 64]}),
+        "metrics/matvec_us.py": STANDIN_METRIC}, [STANDIN_ENTRY])
 
     c = spec.cell("standin.rows")
-    assert {m["name"] for m in c.per_layer} == {"kernel_roofline", "device_idle", "gc_ms"}
-    assert not {m["name"] for m in c.per_layer} & NVM_ONLY
-    assert NVM_ONLY <= {m["name"] for m in spec.cell("fig2-nvm.extents").per_layer}
+    assert names(c) == applicable(bench, "standin.rows") and "matvec_us" in names(c)
+    assert not names(c) & NVM_ONLY and not names(c) & set(KVZONE.LAYER_METRICS)
+    assert NVM_ONLY <= names(spec.cell("fig2-nvm.extents"))
+    for w in bench["workloads"]:
+        if w["name"] != "standin.rows":
+            assert "matvec_us" not in names(spec.cell(w["name"])), w["name"]
 
     r = harness.run_cell(c, 2**33 + 21, 0.3, False, device="cpu", keep_data=True)
     assert r.result["correct"] and r.result["failed"] == 0 and r.result["attempted"] > 0, r.result
@@ -259,31 +299,56 @@ def test_a_kind_added_as_files_alone_runs_is_checked_and_faulted(tmp_path, monke
         bad = harness.run_cell(c, 2**33 + 22, 0.3, False, device="cpu")
     assert not bad.result["correct"] and must(bad.result, c.config, c.traffic)
 
+    traced = harness.run_cell(c, 2**33 + 23, 0.3, True, device="cpu")
+    assert traced.result["correct"], traced.result["checks"]
+    assert traced.result["metrics"]["matvec_us"]["value"] > 0
+
     monkeypatch.undo()
     assert files_of_the_checkout() == before
 
 
-def test_a_cell_of_a_kind_there_gets_its_kind_s_metrics_as_one_entry(tmp_path, monkeypatch):
-    """A new ``nvm`` cell, one workload entry and a mix file, names no metric
-    list: the kind's ``LAYER_METRICS`` give it all eight, and a traced run
-    on the CPU reports those that read ``NvmCsd`` there (all but ``h2d_ms``:
-    the CPU copies nothing to a card)."""
-    before = files_of_the_checkout()
-    short = dict(MIXES["extents"], scan_records=[1, 10])
-    added_as_files_alone(tmp_path, monkeypatch, {
-        "name": "fig2-nvm.short", "config": "fig2-nvm", "traffic": "short",
-        "chips": 1, "why": "a new cell of the nvm kind for the harness's tests"},
-        {"traffic/short.json": json.dumps(short)})
+# A new cell of each kind the configurations use: its entry, its mix file,
+# and what its traced run on the CPU reports of its kind's metrics.
+NEW_CELLS = {
+    "nvm": ({"name": "fig2-nvm.short", "config": "fig2-nvm", "traffic": "short",
+             "chips": 1, "why": "a new cell of the nvm kind for the harness's tests"},
+            dict(MIXES["extents"], scan_records=[1, 10]),
+            NVM_ONLY - {"h2d_ms"}),                # the CPU copies nothing to a card
+    "kvzone": ({"name": "kvzone-granite.again", "config": "kvzone-granite",
+                "traffic": "again", "chips": 1,
+                "why": "a new cell of the kvzone kind for the harness's tests"},
+               spec.load_json(spec.HERE / "traffic" / "decode.json"),
+               {"kv_admit_ms", "kv_table_us"}),    # no device trace: no paged_roofline
+}
 
-    c = spec.cell("fig2-nvm.short")
-    every = [m["name"] for m in spec.load_json(tmp_path / "BENCHMARK.json")["per_layer"]]
-    assert [m["name"] for m in c.per_layer] == every and NVM_ONLY <= set(every)
-    assert not any("fig2-nvm.short" in m.get("workloads", []) for m in c.per_layer)
-    cfg, mix = spec.kind(c.config).cut_for_tests(c.config, c.traffic)
-    c.config, c.traffic = cfg, mix
+
+@pytest.mark.parametrize("kind_name", NEW_CELLS)
+def test_a_cell_of_a_kind_there_gets_its_kind_s_metrics_as_one_entry(
+        tmp_path, monkeypatch, kind_name):
+    """A new cell of a kind there, one workload entry and a mix file, names
+    no metric list: it gets the entries every cell gets and its kind's
+    ``LAYER_METRICS`` (an ``nvm`` cell all eight, none of the ``kvzone``
+    kind's), and a traced run on the CPU reports those that read the port
+    there."""
+    entry, mix, reported = NEW_CELLS[kind_name]
+    before = files_of_the_checkout()
+    bench = added_as_files_alone(tmp_path, monkeypatch, entry,
+                                 {f"traffic/{entry['traffic']}.json": json.dumps(mix)})
+
+    c = spec.cell(entry["name"])
+    kind = spec.kind(c.config)
+    assert names(c) == applicable(bench, entry["name"])
+    assert set(kind.LAYER_METRICS) <= names(c)
+    assert not any(entry["name"] in m.get("workloads", []) for m in c.per_layer)
+    others = {"nvm": set(KVZONE.LAYER_METRICS), "kvzone": NVM_ONLY}[kind_name]
+    assert not names(c) & others
+    if kind_name == "nvm":
+        assert NVM_ONLY | EVERY_CELL <= names(c)
+    c.config, c.traffic = kind.cut_for_tests(c.config, c.traffic)
     r = harness.run_cell(c, 2**32 + 41, 1.5, True, device="cpu")
-    assert r.result["correct"] and r.result["attempted"] > 0
-    assert NVM_ONLY - {"h2d_ms"} <= set(r.result["metrics"])
+    assert r.result["correct"] and r.result["attempted"] > 0, r.result["checks"]
+    for name in reported:
+        assert r.result["metrics"][name]["value"] > 0, name
 
     monkeypatch.undo()
     assert files_of_the_checkout() == before
